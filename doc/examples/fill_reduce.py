@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Compose Fill and HReduce into one OperationSequence.
 
-TPU-native analogue of the reference's fill_reduce.py
+Analogue of the reference's fill_reduce.py
 (reference: doc/user/examples/fill_reduce.py): the compound-slot wiring
 table is the same, but the composed sequence compiles to ONE XLA program
 — the intermediate `src` buffer never round-trips to HBM if XLA fuses it

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Create a placement context and report the chosen device.
 
-TPU-native analogue of the reference's hello_accel.py
+Analogue of the reference's hello_accel.py
 (reference: doc/user/examples/hello_accel.py) — device discovery ranks
-TPU > GPU > CPU instead of CUDA > GPU > accelerator, and the env var
+GPU > CPU the way the reference ranks CUDA > GPU > accelerator, and the env var
 ``KATSDPSIGPROC_TPU_DEVICE`` pins a device (reference: accel.py:264-271).
 """
 from katsdpsigproc_tpu.utils import backend

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Multi-device RFI flagging on a device mesh (user guide ch. 10).
 
-Runs on a virtual 8-device CPU mesh so no TPU slice is needed; on real
-hardware the same code spans the pod slice (swap the platform env and,
+Runs on a virtual 8-device CPU mesh so no GPUs are needed; on real
+hardware the same code spans every card (swap the platform env and,
 multi-host, call ``parallel.multihost.initialize`` first).
 
 Shows both sharded pipelines:

@@ -2,7 +2,7 @@
 """Triple an array: the simplest "kernel" is a jitted pure function.
 
 The reference's first tutorial step writes a CUDA-C/OpenCL-C kernel and
-enqueues it by hand (reference: doc/user/examples/triple.py).  On TPU the
+enqueues it by hand (reference: doc/user/examples/triple.py).  Under XLA the
 equivalent of a trivial elementwise kernel is just a jitted function —
 XLA generates the vectorized device loop.
 """

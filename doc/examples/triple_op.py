@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Triple as an Operation with a Template and an autotuner hook.
 
-TPU-native analogue of the reference's full template/operation tutorial
+Analogue of the reference's full template/operation tutorial
 (reference: doc/user/examples/triple_op_template.py, triple_tune.py).
 The workflow is the reference's — build a template once, instantiate per
 shape, bind buffers, call — but the instantiated operation is a pure

@@ -1,12 +1,12 @@
 #!/usr/bin/env python
 """Triple an array with a hand-written Pallas kernel.
 
-TPU-native analogue of the reference's custom-kernel tutorial
-(reference: doc/user/examples/triple.py, sum.py — Mako-templated
-CUDA-C/OpenCL-C compiled at runtime): the kernel is Python traced by
-Pallas; the grid/BlockSpec play the role of the reference's
-global_size/local_size work decomposition.  Runs in interpret mode off
-TPU so the example works everywhere.
+Analogue of the reference's custom-kernel tutorial (reference:
+doc/user/examples/triple.py, sum.py — Mako-templated CUDA-C/OpenCL-C
+compiled at runtime): the kernel is Python traced by Pallas and lowered
+through Triton for the GPU; the grid/BlockSpec play the role of the
+reference's global_size/local_size work decomposition.  On the CPU the
+same kernel runs in Pallas's interpreter.
 """
 import jax
 import jax.numpy as jnp
@@ -17,7 +17,7 @@ from katsdpsigproc_tpu.utils import backend
 
 backend.apply_platform_env()
 
-BLOCK = 256  # the analogue of the reference kernel's work-group size
+BLOCK = 256  # the analogue of the reference kernel's work-group size (a power of 2)
 
 
 def triple_kernel(x_ref, o_ref):
@@ -33,7 +33,8 @@ def triple(x):
         grid=(n // BLOCK,),
         in_specs=[pl.BlockSpec((BLOCK,), lambda i: (i,))],
         out_specs=pl.BlockSpec((BLOCK,), lambda i: (i,)),
-        interpret=jax.devices()[0].platform != "tpu",
+        backend="triton",
+        interpret=jax.devices()[0].platform == "cpu",
     )(x)
 
 

@@ -1,13 +1,13 @@
-"""katsdpsigproc_tpu — a TPU-native signal-processing framework.
+"""katsdpsigproc_tpu — a signal-processing framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 ska-sa/katsdpsigproc (reference: ``/root/reference``): an accelerated-operation
 framework (composable ops with shape/padding contracts, a static offline
 tuning table, asyncio host pipelining) plus its radio-astronomy workload — a
 primitive library (fill, tiled transpose, reductions, masked sum,
 rank/percentile selection, FFT) and the full RFI-flagging pipeline
 (background median filter → MAD noise estimation → Offringa SumThreshold),
-in 1-D and 2-D time–frequency variants, sharded over TPU device meshes.
+in 1-D and 2-D time–frequency variants, sharded over device meshes.
 
 Package layout
 --------------
@@ -15,7 +15,7 @@ Package layout
     Primitive operations (the reference's ``fill.py``/``transpose.py``/
     ``reduce.py``/``maskedsum.py``/``percentile.py``/``fft.py`` plus the
     ``rank.mako``/``wg_reduce.mako`` kernel-support libraries, re-designed
-    as Pallas kernels and composable JAX functions).
+    as composable JAX functions).
 ``models``
     The flagger pipelines (reference ``rfi/``): host oracle, device
     pipeline, and the 2-D SumThreshold flagger.

@@ -2,7 +2,7 @@
 
 Mirrors the component inventory of the reference's ``rfi`` package
 (reference: src/katsdpsigproc/rfi/__init__.py) with a numpy host oracle,
-a TPU device pipeline, and the 2-D time–frequency SumThreshold flagger.
+a device pipeline, and the 2-D time–frequency SumThreshold flagger.
 """
 
 # MAD-to-sigma conversion: sigma estimate = MAD_NORMAL * median(|deviations|)
@@ -11,7 +11,6 @@ MAD_NORMAL = 1.4826
 
 from . import host  # noqa: E402,F401
 from . import device  # noqa: E402,F401
-from . import pallas_flagger  # noqa: E402,F401
 from . import twodflag  # noqa: E402,F401
 
-__all__ = ["MAD_NORMAL", "host", "device", "pallas_flagger", "twodflag"]
+__all__ = ["MAD_NORMAL", "host", "device", "twodflag"]

@@ -1,4 +1,4 @@
-"""TPU device implementations of the RFI flagging pipeline.
+"""Device implementations of the RFI flagging pipeline.
 
 Mirrors the reference's device flagger framework (reference:
 src/katsdpsigproc/rfi/device.py): per-stage Template/Operation pairs with a
@@ -6,16 +6,16 @@ src/katsdpsigproc/rfi/device.py): per-stage Template/Operation pairs with a
 ``*HostFromDevice`` wrappers presenting the host oracle API over device
 implementations, and a composed ``FlaggerDevice`` pipeline.
 
-TPU-native design choices (not a translation):
+Design choices (not a translation):
 
 * **Background median filter** (reference
   rfi/background_median_filter.mako:79-220 — a serial sliding rank-
   maintenance window per thread): reformulated as a *vectorized windowed
   median* over the ``width`` shifted copies of the amplitude array,
-  fully parallel on the VPU.  The default engine is a Batcher sorting
+  fully data-parallel.  The default engine is a Batcher sorting
   network pruned to the median's cone of influence
   (``ops.rank.selection_network``); a compare-count ranking engine is
-  selectable (see :func:`masked_median_filter` for the measured
+  selectable (see :func:`masked_median_filter` for the
   tradeoff).  Flagged samples become NaN (the reference's ``-1``
   sentinel) and drop out of the valid count exactly as the reference's
   ``num_valid`` bookkeeping does.
@@ -24,7 +24,7 @@ TPU-native design choices (not a translation):
   baselines (see :mod:`katsdpsigproc_tpu.ops.rank`).
 * **SumThreshold** (reference rfi/threshold_sum.mako:49-132 — Kogge-Stone
   ladders in local memory): expressed as shifted-window sums and boolean
-  dilations along the channel axis — pure VPU elementwise chains that XLA
+  dilations along the channel axis — elementwise chains that XLA
   fuses; no barriers, no local memory, no ``EDGE_SIZE`` halo bookkeeping
   (the whole baseline is resident).  Window sums use direct shifted adds
   (not cumsum differences) so float behaviour tracks the host oracle's
@@ -34,11 +34,16 @@ TPU-native design choices (not a translation):
   disagree (reference rfi/device.py:1026-1037,1135-1164) — but since the
   whole pipeline is one jitted XLA program, those transposes are layout
   changes for the compiler, not extra HBM round-trips.
+
+Each stage runs under a :func:`jax.named_scope` named after its function
+(``background_median_filter``, ``madnz``, ``threshold_sum``), so profiler
+traces and compiled HLO metadata attribute device time to stages.
 """
 
 import enum
 from typing import Any, Mapping, Optional, Type, Union
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -82,21 +87,17 @@ def masked_median_filter(amp, width: int, engine: str = "network",
     window: with ``a`` fills below, valid rank ``r`` lands at ``a + r``
     and ``a + (n−1)//2 == width//2`` identically.  The per-element
     valid-count pass and the rank-indexed selection loop disappear
-    (bit-identical results — the same elements are selected; see the
-    Pallas twin :func:`.pallas_flagger._median_parity_fill`).
+    (bit-identical results — the same elements are selected).
 
-    Both engines keep the window stack out of HBM (every term is a
-    shifted elementwise op XLA fuses into one VPU loop; an axis sort
+    Both engines keep the window stack out of device memory (every term
+    is a shifted elementwise op XLA fuses into one loop; an axis sort
     would materialize ``width`` full copies):
 
     * ``"network"`` (default) — Batcher odd-even sort of the +inf-masked
       members, pruned to the lower-half outputs that the median selection
       can touch (78 vector min/max ops for width 13, vs 96 for the full
       sort — ``ops.rank.selection_network``), followed by rank-indexed
-      selection of the two middle valid entries.  Measured
-      1.55× over compare-count on v5e under the honest scan harness
-      (scripts/background_variants.py) — the data parallelism across
-      channels hides the network's dependency chain.
+      selection of the two middle valid entries.
     * ``"count"`` — compare-count ranking: each member's stable rank
       among valid members is its count of pairwise wins (ties to the
       earlier position); O(width²) compares, wide and shallow.
@@ -181,10 +182,9 @@ def masked_median_filter(amp, width: int, engine: str = "network",
 def amplitude(vis):
     """|vis| for complex or planar (trailing-pair float32) visibilities.
 
-    TPU backends have no complex dtype support, so the TPU-native layout
-    for complex visibilities is *split-complex*: a trailing length-2
-    float32 axis (re, im) — the layout the VPU vectorizes best.  Complex
-    input is accepted for CPU/test use.
+    Complex visibilities may come as complex64 or *split-complex*: a
+    trailing length-2 float32 axis (re, im), the planar image of
+    interleaved complex64.
     """
     if jnp.issubdtype(vis.dtype, jnp.complexfloating):
         return jnp.abs(vis).astype(jnp.float32)
@@ -195,26 +195,18 @@ def amplitude(vis):
     raise TypeError("expected complex input or a trailing (re, im) pair axis")
 
 
-def to_planar(vis, leading: bool = False):
+def to_planar(vis):
     """Convert a complex numpy/JAX array to the planar float32 layout.
 
-    ``leading=False`` (default) gives the trailing (…, 2) layout — the
-    planar image of interleaved complex64, i.e. what the reference's
-    device buffers hold.  ``leading=True`` gives (2, …): the fused Pallas
-    flagger's native layout, which reshapes to its band-folded blocks
-    with NO device copy (see :func:`..pallas_flagger.flag_transposed`
-    ``layout="leading"``) — the corner turn happens host-side here, where
-    the complex→planar split is already mandatory (the TPU backend cannot
-    transfer complex dtypes at all).
+    The trailing (…, 2) layout is the planar image of interleaved
+    complex64, i.e. what the reference's device buffers hold.
     """
-    import numpy as np
-
-    axis = 0 if leading else -1
     if isinstance(vis, np.ndarray):
-        return np.stack([vis.real.astype(np.float32), vis.imag.astype(np.float32)], axis=axis)
-    return jnp.stack([vis.real.astype(jnp.float32), vis.imag.astype(jnp.float32)], axis=axis)
+        return np.stack([vis.real.astype(np.float32), vis.imag.astype(np.float32)], axis=-1)
+    return jnp.stack([vis.real.astype(jnp.float32), vis.imag.astype(jnp.float32)], axis=-1)
 
 
+@jax.named_scope("background_median_filter")
 def background_median_filter(vis, flags, width: int, is_amplitude: bool,
                              use_flags: BackgroundFlags, engine: str = "network",
                              fast_path: Optional[bool] = None):
@@ -231,11 +223,7 @@ def background_median_filter(vis, flags, width: int, is_amplitude: bool,
 
     ``fast_path`` gates the no-input-flags edge-fill fast path (which
     skips the valid-count pass, rank selection, and NaN post-fill).  The
-    two paths are bit-identical; the fast path is a pure op reduction
-    that A/Bs differently per consuming engine (round 3 fastpath_ab:
-    +8.2% for the fused Pallas kernel's analogue, −3% under the XLA
-    engine), so callers gate it per engine.  ``None`` keeps it on where
-    applicable.
+    two paths are bit-identical.  ``None`` keeps it on where applicable.
     """
     if fast_path is None:
         fast_path = True
@@ -261,6 +249,7 @@ def background_median_filter(vis, flags, width: int, is_amplitude: bool,
     return jnp.where(jnp.isnan(deviations), 0.0, deviations).astype(jnp.float32)
 
 
+@jax.named_scope("madnz")
 def madnz(deviations_t, n_channels: Optional[int] = None, axis: int = -1,
           radix_bits: int = 4):
     """MAD noise per baseline from deviations, channels along `axis`.
@@ -285,6 +274,7 @@ def threshold_simple(deviations, noise, n_sigma: float, flag_value: int = 1, tra
     return jnp.where(deviations > n_sigma * noise_b, jnp.uint8(flag_value), jnp.uint8(0))
 
 
+@jax.named_scope("threshold_sum")
 def threshold_sum(
     deviations_t,
     noise,
@@ -301,11 +291,9 @@ def threshold_sum(
     reference rfi/host.py:186-254): full windows only; flagged samples are
     clamped to the current threshold; flags disperse over every sample
     covered by an outlier window.  Window sums are direct shifted adds and
-    the dispersal is a boolean dilation — all fusable VPU work
+    the dispersal is a boolean dilation — all fusable elementwise work
     (cf. threshold_sum.mako:84-121's local-memory Kogge-Stone ladders).
     """
-    import jax
-
     ax = deviations_t.ndim - 1 if transposed else 0
     channels = deviations_t.shape[ax]
 
@@ -356,8 +344,6 @@ def make_flagger_fn(
     threshold_falloff: float = 1.2,
     flag_value: int = 1,
     baseline_block: Optional[int] = None,
-    engine: str = "xla",
-    pallas_kw: Optional[dict] = None,
     layout: str = "straight",
     block_impl: str = "pad",
     background_fast: Optional[bool] = None,
@@ -370,43 +356,24 @@ def make_flagger_fn(
     round-trips deviations/noise/flags through global memory between
     kernels).  `baseline_block` processes the baseline axis in sequential
     blocks to bound peak memory for very large dumps; ``block_impl``
-    selects lane-aligned padded slicing (``"pad"``, default — rounds the
-    block up to a multiple of 128 and zero-pads the baseline axis so
-    every slab start hits a lane-tile boundary; unaligned dynamic slices
-    cost a relayout copy per slab, measured ~4 ms/dump at MeerKAT scale),
-    exact-size dynamic slicing (``"slice"``), or a stacked ``lax.scan``
-    (``"scan"``).  ``layout``
-    selects the stage memory order after the background filter — the
-    reference's madnz.mako ("straight", default: noise/threshold run
-    channel-major, zero transposes) vs madnz_t.mako ("transposed")
-    pairing.  Both layouts and both block impls are bit-identical;
-    straight+slice measured fastest on v5e (scripts/flagger_blocking_ab.py).
-
-    ``engine="hybrid"`` (threshold="sum" only) keeps the background median
-    filter in XLA (it fuses into one pass over the visibilities) but runs
-    MAD-noise + SumThreshold as one Pallas kernel
-    (:func:`..pallas_flagger.madnz_threshold`): the XLA rank search
-    re-reads the deviations from HBM every one of its 31 rounds, while
-    the kernel reads them once into VMEM.  ``pallas_kw`` passes bb/fold/
-    nref/interpret through to the kernel.
+    selects padded slicing (``"pad"``, default — rounds the block up to a
+    multiple of 128 and zero-pads the baseline axis so every slab has the
+    same aligned shape), exact-size dynamic slicing (``"slice"``), a
+    stacked ``lax.scan`` (``"scan"``), or a static Python loop
+    (``"unroll"``).  ``layout`` selects the stage memory order after the
+    background filter — the reference's madnz.mako ("straight", default:
+    noise/threshold run channel-major, zero transposes) vs madnz_t.mako
+    ("transposed") pairing.  All layouts and block impls are
+    bit-identical.  ``background_fast`` selects the background filter's
+    edge-fill fast path (see :func:`background_median_filter`; default
+    off).
 
     Returns ``fn(vis[, input_flags]) -> flags`` on (channels, baselines).
     """
-    import jax
-
     use_flags = BackgroundFlags.NONE if use_flags is None else use_flags
-    if engine not in ("xla", "hybrid"):
-        raise ValueError(f"unknown engine {engine!r}")
-    if engine == "hybrid" and threshold != "sum":
-        raise ValueError("engine='hybrid' implements threshold='sum' only")
     if layout not in ("transposed", "straight"):
         raise ValueError(f"unknown layout {layout!r}")
     if background_fast is None:
-        # Round-3 in-process A/B (scripts/fastpath_ab.py): the edge-fill
-        # fast path is a win inside the fused Pallas kernel but measured
-        # −3% under the XLA background (the full-block op count is not
-        # the cost currency here), so the XLA-background engines default
-        # to the general path.  Bit-identical either way.
         background_fast = False
 
     def block_fn(vis, input_flags=None):
@@ -414,15 +381,6 @@ def make_flagger_fn(
             vis, input_flags, width, is_amplitude, use_flags,
             fast_path=background_fast,
         )
-        if engine == "hybrid":
-            from . import pallas_flagger
-
-            dev_t = jnp.swapaxes(deviations, 0, 1)
-            flags_t = pallas_flagger.madnz_threshold(
-                dev_t, n_sigma=n_sigma, n_windows=n_windows, falloff=threshold_falloff,
-                flag_value=flag_value, **(pallas_kw or {}),
-            )
-            return jnp.swapaxes(flags_t, 0, 1)
         if layout == "straight":
             # Channel-major throughout — the reference's madnz.mako layout:
             # no corner turn of deviations or flags.
@@ -531,13 +489,10 @@ def make_flagger_fn(
         return jnp.concatenate(outs, axis=1) if len(outs) > 1 else outs[0]
 
     def blocked_pad(vis, input_flags=None):
-        # Lane-aligned variant of blocked_slice: pad the baseline axis so
-        # every slab start is a multiple of 128 (the TPU lane tile).
-        # Unaligned dynamic slices force a relayout copy per slab —
-        # measured ~3-5 ms of pure slicing machinery at MeerKAT scale
-        # (scripts/flagger_gap_profile.py); one contiguous pad + aligned
-        # slices is cheaper.  Baselines are independent, so zero-padding
-        # is exact (pad columns' flags are cropped).
+        # Aligned variant of blocked_slice: pad the baseline axis so every
+        # slab start is a multiple of 128 and every slab has one shape.
+        # Baselines are independent, so zero-padding is exact (pad
+        # columns' flags are cropped).
         c, b = vis.shape[:2]
         slab_a = -(-baseline_block // 128) * 128
         nb = -(-b // slab_a)
@@ -563,6 +518,23 @@ def make_flagger_fn(
     impl = {"slice": blocked_slice, "scan": blocked_scan, "unroll": blocked_unroll,
             "pad": blocked_pad}
     return jax.jit(impl[block_impl])
+
+
+def spectral_flag(x, n_sigma: float = 5.0):
+    """FFT-path spectral flagging of real series, samples along the last axis.
+
+    Per row: r2c FFT → flag the bins whose amplitude exceeds `n_sigma`
+    MAD-sigmas of the row's non-zero bin amplitudes → zero the flagged
+    bins → c2r inverse.  Returns ``(flags, cleaned)``: uint8 flags of shape
+    ``(..., n // 2 + 1)`` and the cleaned float32 series.
+    """
+    n = x.shape[-1]
+    spectrum = jnp.fft.rfft(x, axis=-1)
+    amp = jnp.abs(spectrum).astype(jnp.float32)
+    noise = MAD_NORMAL * rank_ops.median_non_zero(amp)
+    flags = amp > n_sigma * noise[..., None]
+    cleaned = jnp.fft.irfft(jnp.where(flags, 0.0, spectrum), n=n, axis=-1)
+    return flags.astype(jnp.uint8), cleaned.astype(jnp.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -649,11 +621,8 @@ class BackgroundMedianFilterDeviceTemplate(AbstractBackgroundDeviceTemplate):
     @classmethod
     @tune.autotuner(test={"engine": "network"})
     def autotune(cls, context, width) -> Mapping[str, Any]:
-        # Measured engine search (both engines are mask-exact; see the
-        # masked_median_filter docstring for the measured v5e tradeoff).
+        # Measured engine search (both engines are mask-exact).
         import functools
-
-        import jax
 
         rs = np.random.RandomState(2021)
         amp = jnp.asarray(np.abs(rs.standard_normal((4096, 512))).astype(np.float32))
@@ -713,9 +682,9 @@ class NoiseEstMADTDeviceTemplate(AbstractNoiseEstDeviceTemplate):
     """Transposed-layout MAD noise estimator (reference rfi/device.py:363-614).
 
     The reference's transposed variant holds a whole baseline per workgroup
-    (madnz_t.mako); on TPU each baseline is a vector-lane row and the rank
-    search vectorizes across baselines, so `max_channels` is only a VMEM
-    budget hint for the fused Pallas path.  The tuning knob is the rank
+    (madnz_t.mako); here the rank search vectorizes across baselines, so
+    `max_channels` only bounds the channel count (and sizes the tuning
+    search).  The tuning knob is the rank
     search's ``radix_bits`` digit width (bits resolved per data sweep —
     every value is exact; see :func:`..ops.rank.find_rank_float`).
     """
@@ -769,8 +738,6 @@ class NoiseEstMADTDevice(AbstractNoiseEstDevice):
 def _madnz_radix_search(axis: int, channels: int, baselines: int = 128) -> Mapping[str, Any]:
     """Measured ``radix_bits`` search shared by the noise-estimate templates."""
     import functools
-
-    import jax
 
     rs = np.random.RandomState(2021)
     shape = (baselines, channels) if axis == -1 else (channels, baselines)
@@ -838,7 +805,7 @@ class NoiseEstMADDevice(AbstractNoiseEstDevice):
 class ThresholdSimpleDeviceTemplate(AbstractThresholdDeviceTemplate):
     """Elementwise threshold (reference rfi/device.py:654-809).
 
-    One fused VPU compare — no searchable dimension exists (the reference
+    One fused elementwise compare — no searchable dimension exists (the reference
     tunes work-group sides, rfi/device.py:700-720), so this template has
     no autotune and ``tuning`` is accepted for signature parity and
     ignored.

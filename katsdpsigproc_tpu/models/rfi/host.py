@@ -1,6 +1,6 @@
 """RFI flagging algorithms that run on the CPU (numpy).
 
-This module is the *oracle layer*: every device (TPU) implementation in
+This module is the *oracle layer*: every device implementation in
 :mod:`katsdpsigproc_tpu.models.rfi.device` is validated against these
 classes, exactly as the reference validates its CUDA/OpenCL pipeline against
 its host classes (reference: src/katsdpsigproc/rfi/host.py:118-273 and

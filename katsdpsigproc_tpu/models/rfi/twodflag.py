@@ -15,10 +15,10 @@ twodflag.py:894-913) is preserved step for step:
    per-chunk noise estimates;
 5. extend flags in time/frequency and fully flag over-flagged rows/columns.
 
-TPU-native deltas:
+Design deltas:
 
 * numba serial loops → vectorized array ops (masked medians via the exact
-  bitwise rank search; NaN interpolation via sublane log-shift fills; box
+  bitwise rank search; NaN interpolation via log-shift fills; box
   filters via ``lax.reduce_window`` window sums, which keep summation local
   instead of the reference's long double-precision rolling sums,
   twodflag.py:284-307);
@@ -128,11 +128,6 @@ def _fill_hillis(data, idx0, *, reverse: bool):
     single ``isnan`` predicate, so the -1/NaN invariant is maintained by the
     shift padding alone.
 
-    Engine choice (scripts/naninterp_ab.py): explicit pad-shift rounds on
-    the SUBLANE axis beat ``lax.associative_scan`` along lanes >5x on TPU —
-    the scan's odd/even interleave is strided lane slicing (relayout per
-    round), while sublane shifts are cheap; a gather
-    (``take_along_axis``) is ~15x worse again.
     """
     n = data.shape[-2]
     v = data
@@ -159,7 +154,7 @@ def _linearly_interpolate_nans1d(data):
 
     Extrapolation repeats the first/last valid value; all-NaN rows become 0
     (reference twodflag.py:199-237).  Works on (..., N).  The interpolation
-    axis is moved onto sublanes for the fills (see :func:`_fill_hillis`).
+    axis is moved to axis -2 for the fills (see :func:`_fill_hillis`).
     """
     if data.ndim == 1:
         return _linearly_interpolate_nans1d(data[None])[0]
@@ -527,7 +522,7 @@ class SumThresholdFlagger:
         baseline count is padded up to a multiple of the axis size and
         the pad is cropped from the result.
 
-        Works across processes too (a multi-host pod mesh): every process
+        Works across processes too (a multi-host mesh): every process
         passes the full (replicated) host cube, each device takes its
         shard, and the flags are allgathered back to every process
         (tests/multihost_worker.py exercises this over two real

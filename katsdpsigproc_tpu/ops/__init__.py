@@ -1,4 +1,4 @@
-"""Primitive accelerated operations (Pallas kernels + composable JAX functions)."""
+"""Primitive accelerated operations (composable JAX functions)."""
 
 from . import base, fft, fill, maskedsum, percentile, rank, reduce, transpose, wgreduce  # noqa: F401
 

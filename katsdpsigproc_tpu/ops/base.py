@@ -2,9 +2,9 @@
 
 The reference composes GPU kernels through an Operation / IOSlot / Dimension
 graph that propagates buffer padding constraints and aliases scratch memory
-(reference: src/katsdpsigproc/accel.py:1115-1960).  On TPU, XLA's fusion and
-buffer assignment subsume padding unification and scratch aliasing, so the
-TPU-native design keeps the reference's *workflow* — build a template once,
+(reference: src/katsdpsigproc/accel.py:1115-1960).  Under XLA, fusion and
+buffer assignment subsume padding unification and scratch aliasing, so this
+design keeps the reference's *workflow* — build a template once,
 instantiate per shape, bind buffers, call — but each instantiated operation
 is a **pure jitted function** over named arrays:
 
@@ -17,7 +17,7 @@ is a **pure jitted function** over named arrays:
   style;
 * :class:`OperationSequence` chains operations by slot wiring and jits the
   whole chain as ONE XLA program, so intermediate buffers never round-trip
-  to HBM when XLA can fuse them (the analogue of ``OperationSequence``'s
+  to device memory when XLA can fuse them (the analogue of ``OperationSequence``'s
   compound/alias slots, accel.py:1759-1835);
 * :func:`visualize_operation` emits Graphviz DOT for the slot graph
   (accel.py:1935-1960).
@@ -42,15 +42,15 @@ class Dimension:
     """Padding/alignment requirement for one axis of a :class:`Slot`.
 
     The reference's ``Dimension`` (accel.py:1115-1294) propagates padding
-    requirements between composed kernels through union-find linking.  On
-    TPU, XLA owns the *physical* layout, so what survives is the
+    requirements between composed kernels through union-find linking.
+    Under XLA the compiler owns the *physical* layout, so what survives is the
     reference's user-visible contract: operations declare requirements
     (``min_padded_round`` / ``min_padded_size``, power-of-2 ``alignment``,
     ``exact``), composition LINKS the dimensions of slots that share a
     buffer — merging requirements and failing fast on unsatisfiable
     combinations — and binding a buffer freezes the requirement.  The
     GPU stride hint (``align_dtype`` / ``ALIGN_BYTES``) has no analogue:
-    the lane/sublane tile contract in :mod:`..utils.shapes` plays that
+    the tile contract in :mod:`..utils.shapes` plays that
     role and is applied by :attr:`Slot.padded_shape`.
     """
 
@@ -151,7 +151,7 @@ class Slot:
     direction
         Whether the operation consumes or produces this buffer.
     pad_value
-        Value with which padding (up to the TPU tile grid) may be filled.
+        Value with which padding (up to the tile grid) may be filled.
         The reference leaves padding undefined (doc/user/buffers.rst:26-31);
         here it is explicit so rank/reduction kernels can rely on it.
     """
@@ -180,7 +180,7 @@ class Slot:
 
     @property
     def padded_shape(self) -> Tuple[int, ...]:
-        """Per-axis max of the TPU tile contract and any linked
+        """Per-axis max of the tile contract and any linked
         :class:`Dimension` requirements (exact dimensions pin the size)."""
         base = shapes_util.padded_shape(self.shape, self.dtype)
         out = []

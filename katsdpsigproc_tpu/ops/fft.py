@@ -5,7 +5,7 @@ with R2C/C2R/C2C (and double-precision) batched plans over padded
 embeddings, unnormalised transforms, an explicit work-area slot, and a
 plan lock for stream mutation.
 
-TPU-native design: XLA provides the FFT (``jnp.fft``), so the template
+Design: XLA provides the FFT (cuFFT on a GPU) (``jnp.fft``), so the template
 carries only shape/dtype contracts.  cuFFT's unnormalised-inverse
 convention is preserved (forward∘inverse scales by the transform size —
 reference fft.py:228-230), which means the inverse multiplies XLA's
@@ -14,8 +14,7 @@ analogue (XLA owns scratch and the runtime is thread-safe by
 construction — SURVEY.md §7 "cuFFT ctypes wrapper → jnp.fft").
 
 Note: double-precision transforms (the reference's D2Z/Z2D/Z2Z) are
-accepted but require an x64-enabled backend; TPU hardware supports
-single precision only.
+accepted but require JAX's x64 mode.
 """
 
 import enum

@@ -1,7 +1,7 @@
 """Fill an array with a constant value.
 
 Reference: src/katsdpsigproc/fill.py:30-148 (FillTemplate/Fill) and
-fill.mako:26-32.  On TPU a fill is a single XLA broadcast — there is no
+fill.mako:26-32.  Under XLA a fill is a single broadcast — there is no
 tuning dimension at all (the reference tunes a work-group size,
 fill.py:70-82, a knob that does not exist under XLA), so this template has
 **no autotune**: the ``tuning`` argument is accepted for signature parity

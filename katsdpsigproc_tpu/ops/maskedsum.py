@@ -4,20 +4,25 @@ Reference: src/katsdpsigproc/maskedsum.py:33-162 and maskedsum.mako:38-68 —
 each output column is ``sum_r mask[r] * src[r, c]`` (complex64 input,
 float32 mask), optionally over amplitudes (``|src[r, c]|``).
 
-TPU-native design: this is a **vector–matrix product**, so instead of the
-reference's per-column FMA loop it is expressed as ``mask @ src`` and runs
-on the MXU — the single highest-throughput unit on the chip.  Complex data
-decomposes into two real matvecs (XLA does this automatically for
-complex64 dot); the amplitude variant is |src| (VPU, fused into the HBM
-read) followed by the same matvec.  No tuning dimension survives — MXU
-matmul tiling is XLA's job — so this template has **no autotune** (the
-reference tunes a work-group ``size``, maskedsum.py:63-87) and ``tuning``
-is accepted for signature parity and ignored.
+Design: this is a **vector–matrix product**, so instead of the
+reference's per-column FMA loop it is expressed as ``mask @ src`` and left
+to XLA's dot emitter.  Complex data decomposes into two real matvecs (XLA
+does this automatically for complex64 dot); the amplitude variant is
+|src| (fused into the read) followed by the same matvec.  Every dot asks
+for ``Precision.HIGHEST``: a GPU may otherwise run a float32 product in
+TF32 (about three decimal digits), while the reference sums in float32
+FMA.  No tuning dimension survives — the product's tiling is XLA's job —
+so this template has **no autotune** (the reference tunes a work-group
+``size``, maskedsum.py:63-87) and ``tuning`` is accepted for signature
+parity and ignored.
 """
 
 from typing import Any, Mapping, Tuple
 
 import jax.numpy as jnp
+from jax import lax
+
+_HIGHEST = lax.Precision.HIGHEST
 
 from . import base
 
@@ -71,21 +76,22 @@ class MaskedSum(base.Operation):
 
 
 def maskedsum(src, mask, use_amplitudes: bool = False):
-    """Functional masked column sum (MXU matvec).
+    """Functional masked column sum (a matvec at full float32 precision).
 
-    `src` may be complex64 (rows, cols) or planar (rows, cols, 2) float32
-    (the TPU layout — no complex dtype on TPU backends).  Planar
-    non-amplitude output is planar (cols, 2).
+    `src` may be complex64 (rows, cols) or planar (rows, cols, 2) float32.
+    Planar non-amplitude output is planar (cols, 2).
     """
     if src.ndim == 3 and not jnp.issubdtype(src.dtype, jnp.complexfloating):
         if use_amplitudes:
             amp = jnp.sqrt(src[..., 0] ** 2 + src[..., 1] ** 2)
-            return jnp.dot(mask, amp, preferred_element_type=jnp.float32)
-        # One MXU matvec over the flattened (rows, 2*cols) view
+            return jnp.dot(mask, amp, precision=_HIGHEST, preferred_element_type=jnp.float32)
+        # One matvec over the flattened (rows, 2*cols) view
         rows, cols = src.shape[0], src.shape[1]
-        flat = jnp.dot(mask, src.reshape(rows, cols * 2), preferred_element_type=jnp.float32)
+        flat = jnp.dot(mask, src.reshape(rows, cols * 2), precision=_HIGHEST,
+                       preferred_element_type=jnp.float32)
         return flat.reshape(cols, 2)
     if use_amplitudes:
-        return jnp.dot(mask, jnp.abs(src), preferred_element_type=jnp.float32)
-    # Complex64 matvec: XLA decomposes into real MXU matmuls.
-    return jnp.dot(mask.astype(jnp.complex64), src)
+        return jnp.dot(mask, jnp.abs(src), precision=_HIGHEST,
+                       preferred_element_type=jnp.float32)
+    # Complex64 matvec: XLA decomposes it into real matvecs.
+    return jnp.dot(mask.astype(jnp.complex64), src, precision=_HIGHEST)

@@ -7,35 +7,21 @@ Reference: src/katsdpsigproc/percentile.py:34-217 and percentile.mako:
 amplitudes first.  Matches ``np.percentile(..., interpolation='lower')``
 exactly (reference test/test_percentile.py:47-91).
 
-TPU-native design: the default engine uses the same bitwise IEEE-754 rank
-search as the reference (rank.mako:186-231, here :mod:`.rank`) — 31
-fully-vectorized compare-count rounds, batched over rows, which also extends
-to sharded columns via psum (see
-:mod:`katsdpsigproc_tpu.parallel.collectives`).  A sort engine
-(``jnp.sort`` + gather) and a Pallas engine (each row block read into
-VMEM once; the 31 rank rounds run on-core instead of re-reading HBM —
-17.0 → 1.34 ms at 4000×5000 on a v5e) are alternatives; all are exact.
-``column_range`` mirrors percentile.py:123-130.
+Design: the ``rank`` engine uses the same bitwise IEEE-754 rank search as
+the reference (rank.mako:186-231, here :mod:`.rank`) — fully-vectorized
+compare-count rounds, batched over rows, which also extends to sharded
+columns via psum (see :mod:`katsdpsigproc_tpu.parallel.collectives`).  The
+``sort`` engine (``jnp.sort`` + gather) is the alternative; both are exact,
+and the tuning table picks between them per device.  ``column_range``
+mirrors percentile.py:123-130.
 """
 
-import functools
 from typing import Any, Mapping, Optional, Tuple
 
-import jax
 import jax.numpy as jnp
-from jax import lax
-from jax.experimental import pallas as pl
 
 from ..utils import tune
 from . import base, rank
-
-try:  # pltpu only lowers on TPU
-    from jax.experimental.pallas import tpu as pltpu
-
-    _VMEM = pltpu.VMEM
-except ImportError:  # pragma: nocover
-    pltpu = None
-    _VMEM = None
 
 
 class Percentile5Template:
@@ -51,7 +37,7 @@ class Percentile5Template:
     context
         Placement context.
     max_columns
-        Maximum number of columns (API parity; used as a VMEM-budget hint)
+        Maximum number of columns (API parity; the tuning search's width)
     is_amplitude
         If true, the inputs are scalar amplitudes; if false they are
         complex64 and percentiles are computed on absolute values.
@@ -59,7 +45,7 @@ class Percentile5Template:
         ``engine``: ``"rank"`` (bitwise binary search) or ``"sort"``.
     """
 
-    autotune_version = 8
+    autotune_version = 9
 
     def __init__(self, context, max_columns: int, is_amplitude: bool = True, tuning=None) -> None:
         self.context = context
@@ -83,17 +69,11 @@ class Percentile5Template:
         data = jnp.asarray(host)
 
         def generate(engine: str):
-            if engine == "pallas" and jax.default_backend() == "cpu":
-                # Off-TPU the pallas engine falls back to interpret mode — a
-                # correctness fallback, not a production engine; measuring it
-                # takes minutes at this shape.  Raising skips the config
-                # (tune.autotune treats per-config exceptions as skips).
-                raise RuntimeError("config skipped: pallas engine needs a TPU backend")
             tmpl = cls(context, max_columns, is_amplitude, tuning={"engine": engine})
             op = tmpl.instantiate(None, shape)
             return tune.make_measure(lambda d: op(src=d)["dest"], data)
 
-        return tune.autotune(generate, engine=["rank", "sort", "pallas"])
+        return tune.autotune(generate, engine=["rank", "sort"])
 
     def instantiate(
         self,
@@ -154,92 +134,19 @@ class Percentile5(base.Operation):
         }
 
 
-def _percentile5_kernel(x_ref, out_ref, *, targets):
-    """One VMEM-resident pass: min, max, and a 31-round bitwise rank
-    search per row for all three rank targets (reference
-    rank.mako:197-208 / percentile.mako:115-140).  Lanes beyond the
-    column count are NaN (absent: NaN compares false / bit pattern above
-    any finite positive)."""
-    x = x_ref[...]  # (R, W)
-    nanmask = jnp.isnan(x)
-    mn = jnp.min(jnp.where(nanmask, jnp.inf, x), axis=1, keepdims=True)
-    mx = jnp.max(jnp.where(nanmask, -jnp.inf, x), axis=1, keepdims=True)
-
-    def body(i, carry):
-        out = []
-        for cur, tgt in zip(carry, targets):
-            test = cur | (jnp.int32(1) << (30 - i))
-            cand = lax.bitcast_convert_type(test, jnp.float32)  # (R, 1)
-            cnt = jnp.sum((x < cand).astype(jnp.float32), axis=1, keepdims=True)
-            out.append(jnp.where(cnt <= jnp.float32(tgt), test, cur))
-        return tuple(out)
-
-    zero = jnp.zeros(mn.shape, jnp.int32)
-    cur = lax.fori_loop(0, 31, body, (zero, zero, zero))
-    p25, p75, p50 = (lax.bitcast_convert_type(c, jnp.float32) for c in cur)
-    lane = lax.broadcasted_iota(jnp.int32, out_ref.shape, 1)
-    out_ref[...] = (
-        jnp.where(lane == 0, mn, 0.0)
-        + jnp.where(lane == 1, mx, 0.0)
-        + jnp.where(lane == 2, p25, 0.0)
-        + jnp.where(lane == 3, p75, 0.0)
-        + jnp.where(lane == 4, p50, 0.0)
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("block_rows", "interpret"))
-def _percentile5_pallas(values, block_rows: int = 256, interpret: bool = False):
-    """Pallas engine: each row block is read into VMEM ONCE and all 31
-    rank rounds run register/VMEM-resident — the XLA rank engine re-reads
-    the operand from HBM every round (31 × 4 B/element of traffic)."""
-    rows, n = values.shape
-    # Never pad rows past the input: at small row counts (config 2's
-    # 64×4096) a fixed 256-row block would quadruple the compute.
-    block_rows = min(block_rows, max(8, -(-rows // 8) * 8))
-    r_pad = -(-rows // block_rows) * block_rows
-    w_pad = max(128, -(-n // 128) * 128)
-    x = jnp.pad(values, ((0, r_pad - rows), (0, w_pad - n)),
-                constant_values=jnp.nan)
-    targets = ((n - 1) // 4, (3 * (n - 1)) // 4, (n - 1) // 2)
-    kernel = functools.partial(_percentile5_kernel, targets=targets)
-    kwargs = {}
-    if not interpret and pltpu is not None:
-        # Double-buffered (block + out) slabs exceed the 16 MiB default
-        # scoped-VMEM limit at wide column counts; v5e has 128 MiB.
-        kwargs["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024)
-    out = pl.pallas_call(
-        kernel,
-        grid=(r_pad // block_rows,),
-        in_specs=[pl.BlockSpec((block_rows, w_pad), lambda i: (i, 0),
-                               memory_space=_VMEM)],
-        out_specs=pl.BlockSpec((block_rows, 128), lambda i: (i, 0),
-                               memory_space=_VMEM),
-        out_shape=jax.ShapeDtypeStruct((r_pad, 128), jnp.float32),
-        interpret=interpret,
-        **kwargs,
-    )(x)
-    return out[:rows, :5].T  # (5, rows)
-
-
-def percentile5(values, engine: str = "rank", interpret: bool = False):
+def percentile5(values, engine: str = "rank"):
     """[min, max, p25, p75, p50] per row of positive data (..., n) → (5, ...)."""
     n = values.shape[-1]
     r25 = (n - 1) // 4
     r75 = (3 * (n - 1)) // 4
     r50 = (n - 1) // 2
-    if engine == "pallas":
-        if values.ndim != 2:
-            raise ValueError("engine='pallas' supports 2-D (rows, cols) input")
-        interpret = interpret or jax.default_backend() == "cpu"
-        return _percentile5_pallas(values, interpret=interpret)
     if engine == "sort":
         s = jnp.sort(values, axis=-1)
         out = jnp.stack([s[..., 0], s[..., n - 1], s[..., r25], s[..., r75], s[..., r50]])
-    else:
+    elif engine == "rank":
         # One radix search resolves all three ranks at once: the rank axis
         # broadcasts against a single read of the data per round (radix-16
-        # digits: 8 sweeps; times within noise of binary on v5e).
+        # digits: 8 sweeps instead of 31).
         targets = jnp.asarray([r25, r75, r50], jnp.int32)
         vb = jnp.broadcast_to(values[..., None, :], values.shape[:-1] + (3, values.shape[-1]))
         p = rank.find_rank_float(vb, targets, False, radix_bits=4)  # (..., 3)
@@ -252,4 +159,6 @@ def percentile5(values, engine: str = "rank", interpret: bool = False):
                 p[..., 2],
             ]
         )
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
     return out.astype(jnp.float32)

@@ -6,9 +6,9 @@ encodings, so 31 rank-count rounds locate any order statistic exactly
 (reference: src/katsdpsigproc/rank.mako:186-231 ``find_rank_float``,
 253-267 ``median_non_zero_float``).
 
-That algorithm is ideal for TPU: each round is a fully-vectorized
-compare-and-sum over the data (VPU), batched over any leading axes, with no
-data movement — and it extends across device shards by replacing the local
+That algorithm suits a data-parallel accelerator: each round is a
+fully-vectorized compare-and-sum over the data, batched over any leading
+axes, with no data movement — and it extends across device shards by replacing the local
 count with a ``psum`` (see :mod:`katsdpsigproc_tpu.parallel.collectives`),
 which is how global percentiles run without gathering data (SURVEY.md §5).
 
@@ -35,8 +35,7 @@ def batcher_pairs(n: int):
 
     48 exchanges for n=13.  Straight-line min/max vector code — the
     reference's rank-maintained window (background_median_filter.mako:
-    130-145) recast for SIMD; used by both the Pallas flagger kernel and
-    the XLA windowed-median engine.
+    130-145) recast for SIMD; used by the windowed-median engine.
     """
     pairs = []
     t = 1
@@ -351,11 +350,11 @@ def find_rank_float(
     rank.mako:199-206); each round here resolves a ``radix_bits``-wide
     digit by counting against the ``2**radix_bits - 1`` candidate
     prefixes at once — the same greedy max-prefix result in
-    ``ceil(31/radix_bits)`` data sweeps.  Locally the binary search
-    measures fastest on v5e (XLA re-reads the operand per candidate, so
-    wider digits only add compute); sharded callers pass ``radix_bits=4``
-    because there the round count is an inter-chip latency, not a
-    bandwidth, cost.
+    ``ceil(31/radix_bits)`` data sweeps.  Which width is fastest locally
+    depends on whether the compiled loop re-reads the operand from device
+    memory on each round (the noise-estimate templates tune it per
+    device); sharded callers pass ``radix_bits=4`` because there the round
+    count is an inter-chip latency, not a bandwidth, cost.
 
     Parameters
     ----------
@@ -413,10 +412,9 @@ def find_rank_float(
     # ``v < cur|(j<<s)  ⟺  (bits(v) - cur) >> s < j`` — the resolved
     # digits of ``cur`` sit above ``s`` so | == +, and the arithmetic
     # shift floors v<cur below every j.  One elementwise chain per round
-    # feeds ALL k candidate counts; on v5e, XLA keeps slab-sized operands
-    # VMEM-resident across rounds, so radix 1..16 time the same locally
-    # (scripts/madnz_variants.py) — wider digits matter for collectives,
-    # where rounds are inter-chip latency.
+    # feeds ALL k candidate counts — wider digits trade compute per round
+    # for fewer rounds (fewer operand reads, and fewer collective rounds
+    # when sharded).
     bits = lax.bitcast_convert_type(values, jnp.int32)
 
     cur = jnp.zeros(batch_shape, jnp.int32)
@@ -493,9 +491,8 @@ def median_non_zero(values, n: Optional[jnp.ndarray] = None, count_fn: Callable 
     the ``n - z`` non-zeros has global strict-rank target ``(n + z) // 2``
     with halfway averaging when ``n - z`` is even — exactly the reference's
     formulation (rank.mako:261-266), which matches ``np.median`` on the
-    non-zero subset.  ``radix_bits=4`` (8 data sweeps) times within noise
-    of binary on v5e (operands stay VMEM-resident across rounds) and
-    keeps loop trip counts small.
+    non-zero subset.  ``radix_bits=4`` (8 data sweeps) keeps loop trip
+    counts small.
     """
     values = jnp.asarray(values)
     if n is None:

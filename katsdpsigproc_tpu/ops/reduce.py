@@ -4,7 +4,7 @@ Reference: src/katsdpsigproc/reduce.py:22-214 (HReduceTemplate/HReduce) over
 hreduce.mako + wg_reduce.mako — each row of a 2-D array is reduced across a
 column range with a caller-supplied C expression and identity.
 
-TPU-native design: the operator is a JAX binary callable (or a named
+Design: the operator is a JAX binary callable (or a named
 operator from :mod:`.wgreduce`) instead of a C snippet; the reduction is a
 single XLA ``reduce`` over the row axis, which the compiler tiles and
 vectorizes — the reference's wgsx/wgsy work-group search

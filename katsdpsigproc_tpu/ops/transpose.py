@@ -4,94 +4,20 @@ Reference: src/katsdpsigproc/transpose.py:39-174 plus the tiled
 local-memory kernel machinery in transpose.mako:44-73 and
 transpose_base.mako:34-137 (bank-conflict padding, diagonal block remap).
 
-TPU-native design: the GPU concerns (shared-memory staging, bank conflicts,
-memory-channel spreading via diagonal remap) do not exist on TPU.  A Pallas
-grid of (TILE_R × TILE_C) blocks reads each tile into VMEM and stores its
-transpose; Mosaic lowers the in-register tile transpose to VPU shuffles, and
-out-of-range tile rows map exactly to out-of-range output columns, so no
-masking logic is needed beyond Pallas block bounds.  Complex64 (the headline
-``transposetest`` config, scripts/transposetest.py:11-25) is bitcast to a
-trailing float32 pair and moved with 3-D blocks.
-
-Tuning (reference tunes block/vtx/vty with a 32 KiB local-memory guard,
-transpose.py:95-108): ``engine`` selects the XLA built-in transpose or the
-Pallas kernel; ``tile_r``/``tile_c`` are the Pallas block sides, bounded by
-VMEM instead of GPU local memory.
+Design: the corner turn is ``jnp.swapaxes``.  XLA's GPU backend emits its
+own shared-memory tiled transpose kernel for it — the same idea as the
+reference's ``transpose.mako`` — for real, complex and planar
+(rows, cols, 2) inputs alike, so no hand-written kernel and no tuning
+dimension remain (the reference tunes block/vtx/vty with a 32 KiB
+local-memory guard, transpose.py:95-108).  ``tuning`` is accepted for
+signature parity and ignored.
 """
 
-import functools
 from typing import Any, Mapping, Optional, Tuple
 
-import jax
 import jax.numpy as jnp
-from jax import lax
-from jax.experimental import pallas as pl
 
-from ..utils import shapes, tune
 from . import base
-
-try:  # pltpu only lowers on TPU; fall back gracefully elsewhere
-    from jax.experimental.pallas import tpu as pltpu
-
-    _VMEM = pltpu.VMEM
-except ImportError:  # pragma: nocover
-    pltpu = None
-    _VMEM = None
-
-
-def _transpose_kernel_2d(src_ref, dest_ref):
-    dest_ref[...] = src_ref[...].T
-
-
-def _transpose_kernel_3d(src_ref, dest_ref):
-    dest_ref[...] = jnp.transpose(src_ref[...], (0, 2, 1))
-
-
-@functools.partial(jax.jit, static_argnames=("tile_r", "tile_c", "interpret"))
-def _pallas_transpose(src, tile_r: int, tile_c: int, interpret: bool = False):
-    """Tiled Pallas transpose of a 2-D array (real, complex, or planar).
-
-    Multi-plane inputs (complex, or an explicit trailing (re, im) planar
-    axis) run with the plane axis LEADING: a trailing size-2 axis would
-    be the lane dimension (2/128 occupancy, and Mosaic rejects the
-    blocks on hardware — same trap as the fused flagger's round-1
-    layout).  Planar-trailing inputs pay one XLA moveaxis each way.
-    """
-    complex_in = jnp.issubdtype(src.dtype, jnp.complexfloating)
-    planar_in = (not complex_in) and src.ndim == 3
-    if complex_in:
-        src = jnp.stack([src.real, src.imag], axis=0)  # (2, R, C) float32
-    elif planar_in:
-        src = jnp.moveaxis(src, -1, 0)  # (P, R, C)
-    if src.ndim == 3:
-        p, r, c = src.shape
-        grid = (p, pl.cdiv(r, tile_r), pl.cdiv(c, tile_c))
-        in_spec = pl.BlockSpec((1, tile_r, tile_c), lambda k, i, j: (k, i, j),
-                               memory_space=_VMEM)
-        out_spec = pl.BlockSpec((1, tile_c, tile_r), lambda k, i, j: (k, j, i),
-                                memory_space=_VMEM)
-        out_shape = jax.ShapeDtypeStruct((p, c, r), src.dtype)
-        kernel = _transpose_kernel_3d
-    else:
-        r, c = src.shape
-        grid = (pl.cdiv(r, tile_r), pl.cdiv(c, tile_c))
-        in_spec = pl.BlockSpec((tile_r, tile_c), lambda i, j: (i, j), memory_space=_VMEM)
-        out_spec = pl.BlockSpec((tile_c, tile_r), lambda i, j: (j, i), memory_space=_VMEM)
-        out_shape = jax.ShapeDtypeStruct((c, r), src.dtype)
-        kernel = _transpose_kernel_2d
-    out = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[in_spec],
-        out_specs=out_spec,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(src)
-    if complex_in:
-        out = lax.complex(out[0], out[1])
-    elif planar_in:
-        out = jnp.moveaxis(out, 0, -1)
-    return out
 
 
 class TransposeTemplate:
@@ -106,52 +32,13 @@ class TransposeTemplate:
     ctype
         Ignored (API parity with the reference).
     tuning
-        ``engine`` ("xla" or "pallas"), ``tile_r``, ``tile_c``.
+        Accepted for signature parity and ignored (no search dimension).
     """
-
-    autotune_version = 1
 
     def __init__(self, context, dtype, ctype: Optional[str] = None, tuning=None) -> None:
         self.context = context
         self.dtype = jnp.dtype(dtype)
         self.ctype = ctype
-        if tuning is None:
-            tuning = self.autotune(context, str(self.dtype))
-        self.engine = tuning.get("engine", "xla")
-        self.tile_r = tuning.get("tile_r", 256)
-        self.tile_c = tuning.get("tile_c", 256)
-
-    @classmethod
-    @tune.autotuner(test={"engine": "xla", "tile_r": 256, "tile_c": 256})
-    def autotune(cls, context, dtype) -> Mapping[str, Any]:
-        shape = (2048, 2048)
-        if jnp.issubdtype(jnp.dtype(dtype), jnp.complexfloating):
-            # No complex dtype on the TPU backend (transfer OR compute):
-            # measure on the planar split-complex layout, which is what
-            # production transposes anyway (3-D (rows, cols, 2) float32).
-            data = jnp.zeros(shape + (2,), jnp.float32)
-        else:
-            data = jnp.zeros(shape, dtype=jnp.dtype(dtype))
-
-        def generate(engine: str, tile_r: int, tile_c: int):
-            itemsize = jnp.dtype(dtype).itemsize
-            if engine == "pallas" and jax.default_backend() == "cpu":
-                # Interpret-mode pallas is a correctness fallback, not a
-                # production engine — skip it rather than measure it.
-                raise RuntimeError("config skipped: pallas engine needs a TPU backend")
-            # VMEM guard: in + out tile, double-buffered (cf. the reference's
-            # 32 KiB local-memory guard, transpose.py:100-102).
-            if engine == "pallas" and 4 * tile_r * tile_c * itemsize > 8 * 1024 * 1024:
-                raise RuntimeError("tile exceeds VMEM budget")
-            tmpl = cls(context, dtype, tuning={"engine": engine, "tile_r": tile_r, "tile_c": tile_c})
-            return tune.make_measure(lambda d: transpose(d, tmpl), data)
-
-        return tune.autotune(
-            generate,
-            engine=["xla", "pallas"],
-            tile_r=[128, 256, 512],
-            tile_c=[128, 256, 512],
-        )
 
     def instantiate(self, command_queue=None, shape: Tuple[int, int] = (0, 0), allocator=None):
         return Transpose(self, shape)
@@ -174,20 +61,12 @@ class Transpose(base.Operation):
         self.slots["dest"] = base.Slot((shape[1], shape[0]), template.dtype, base.Direction.OUT)
 
     def _run(self, src):
-        return {"dest": transpose(src, self.template)}
+        return {"dest": transpose(src)}
 
     def parameters(self) -> Mapping[str, Any]:
-        return {
-            "dtype": self.template.dtype,
-            "shape": self.shape,
-            "engine": self.template.engine,
-        }
+        return {"dtype": self.template.dtype, "shape": self.shape}
 
 
-def transpose(src, template: Optional[TransposeTemplate] = None, interpret: bool = False):
-    """Functional transpose using a template's engine choice (default XLA)."""
-    if template is not None and template.engine == "pallas":
-        tile_r = min(template.tile_r, shapes.roundup(src.shape[0], 8))
-        tile_c = min(template.tile_c, shapes.roundup(src.shape[1], 128))
-        return _pallas_transpose(src, tile_r, tile_c, interpret=interpret)
+def transpose(src):
+    """Swap the first two axes of `src` (a trailing planar axis stays put)."""
     return jnp.swapaxes(src, 0, 1)

@@ -2,13 +2,12 @@
 
 The reference ships a Mako metaprogramming library of work-group cooperative
 reductions with named operators (reference: src/katsdpsigproc/wg_reduce.mako:
-17-33 operator macros, 97-201 raking/shuffle reduction).  On TPU the VPU and
-XLA's reduction lowering replace hand-scheduled tree reductions, so the
-TPU-native equivalent is a library of *named operator objects* — combine
-function + identity + NaN semantics — shared by :mod:`.reduce` (HReduce),
-:mod:`.rank`, and Pallas kernel bodies, plus a :func:`reduce` helper usable
-both at the JAX level and inside Pallas kernels (where ``jnp`` lowers to VPU
-ops).
+17-33 operator macros, 97-201 raking/shuffle reduction).  XLA's reduction
+lowering replaces hand-scheduled tree reductions, so the equivalent here is
+a library of *named operator objects* — combine function + identity + NaN
+semantics — shared by :mod:`.reduce` (HReduce) and :mod:`.rank`, plus a
+:func:`reduce` helper usable in any JAX function (including Pallas kernel
+bodies, where ``jnp`` lowers too).
 """
 
 from dataclasses import dataclass
@@ -65,7 +64,7 @@ BY_NAME = {op.name: op for op in (plus, max_, min_, fmax, fmin)}
 def reduce(values, op: ReduceOp, axis=-1):
     """Reduce `values` along `axis` with `op`.
 
-    Usable at JAX level and inside Pallas kernel bodies.  For the NaN-aware
+    Usable in any JAX function.  For the NaN-aware
     operators this lowers to masked min/max rather than a sequential fold.
     """
     if op.name == "plus":
@@ -95,15 +94,11 @@ def scan(values, op: ReduceOp, axis=-1, reverse: bool = False, exclusive: bool =
 
     The work-group-scan analogue of :func:`reduce` (the reference's
     wg_reduce.mako provides only the reduction; the scan is the natural
-    TPU-native companion — SumThreshold-style windowed passes and the
+    companion — SumThreshold-style windowed passes and the
     chunked noise estimates are built from prefix structures).  Named
     operators use XLA's native cumulative lowerings; user-defined
     operators go through ``lax.associative_scan`` (the operator must be
     associative).
-
-    NOTE (measured, scripts/boxsum_ab.py): cumulative ops along the LANE
-    (last) axis are sequential scans on TPU — put the scanned axis on
-    sublanes for long arrays.
     """
     import jax
 

@@ -4,7 +4,7 @@ The key insight (SURVEY.md §5 "Distributed communication backend"): the
 reference's bitwise binary-search rank selection (rank.mako:197-208) turns
 into an **exact distributed percentile** by replacing the local
 compare-count with a ``psum`` — 31 rounds of a (batch,)-sized integer
-all-reduce, which is bandwidth-trivial on ICI.  No data is ever gathered.
+all-reduce, which is bandwidth-trivial over NVLink.  No data is ever gathered.
 
 These functions must be called inside ``shard_map`` (or ``pjit`` bodies
 with manual axes) where `axis_name` is bound.
@@ -66,7 +66,7 @@ def find_rank_float(values, target_rank, halfway, axis_name: str, radix_bits: in
     computes the same global result.  Radix-16 digits resolve 4 bits per
     round, so the search costs 8 tiny all-reduce rounds instead of 31 —
     across hosts the round count is pure latency.  ``axis`` selects the
-    (locally-sharded) data axis: the default is the lane-major layout;
+    (locally-sharded) data axis: the default is the last axis;
     any other axis runs the straight-layout search with NO corner turn
     (reference madnz.mako vs madnz_t.mako).
     """
@@ -137,8 +137,8 @@ def halo_exchange(x, h: int, axis_name: str, pad_value=jnp.nan, axis: int = 0):
 
     The global-edge shards receive `pad_value` instead (the background
     filter wants NaN = absent; SumThreshold wants 0 but never reads it).
-    Communication is two ``ppermute`` shifts over ICI neighbours — the
-    TPU-native analogue of the reference's chunk-overlap windows
+    Communication is two ``ppermute`` shifts between mesh neighbours — the
+    analogue of the reference's chunk-overlap windows
     (threshold_sum.mako:38-47, rfi/twodflag.py:493-560).
     """
     if h == 0:

@@ -29,10 +29,8 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from jax.sharding import PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..models.rfi import MAD_NORMAL, device as rfi_device
 from ..ops import rank as rank_ops
@@ -60,12 +58,10 @@ def make_sharded_flagger(
     shapes divide the mesh axes.
 
     ``baseline_block`` processes each shard's local baselines in
-    sequential blocks (``lax.scan``): on v5e a ~252-baseline × 32k-channel
-    working set stays VMEM-resident across the rank search's rounds while
-    a whole-shard fusion spills to HBM (measured 42.7 → 22.5 ms per 2016
-    baselines single-chip).  Collectives run once per block — every
-    device scans the same number of blocks, so the psum/ppermute schedules
-    stay aligned.  Ignored unless it divides the local baseline count.
+    sequential blocks (``lax.scan``) to bound the working set.
+    Collectives run once per block — every device scans the same number
+    of blocks, so the psum/ppermute schedules stay aligned.  Ignored
+    unless it divides the local baseline count.
     """
     if BASELINE_AXIS not in mesh.axis_names:
         raise ValueError(f"mesh must name a {BASELINE_AXIS!r} axis")
@@ -87,7 +83,7 @@ def make_sharded_flagger(
             amp = vis.astype(jnp.float32)
             invalid = amp < 0
         else:
-            # complex64 (CPU/tests) or planar (C, B, 2) float32 (TPU layout)
+            # complex64 or planar (C, B, 2) float32
             amp = rfi_device.amplitude(vis)
             invalid = jnp.zeros(amp.shape, bool)
         if use_flags == rfi_device.BackgroundFlags.CHANNEL:
@@ -155,12 +151,12 @@ def make_sharded_flagger(
     def build(n_channels_global, planar: bool):
         vis_spec = P(c_axis, BASELINE_AXIS, None) if planar else P(c_axis, BASELINE_AXIS)
         in_specs = [vis_spec] + ([flag_spec] if flag_spec is not None else [])
-        fn = shard_map(
+        fn = jax.shard_map(
             functools.partial(local_flag, n_channels_global),
             mesh=mesh,
             in_specs=tuple(in_specs),
             out_specs=P(c_axis, BASELINE_AXIS),
-            check_rep=False,
+            check_vma=False,
         )
         return jax.jit(fn)
 
@@ -178,76 +174,5 @@ def make_sharded_flagger(
         if input_flags is not None:
             raise TypeError("flags were provided but not included in the template")
         return cache[key](vis)
-
-    return flagger
-
-
-def make_sharded_fused_flagger(
-    mesh,
-    width: int = 13,
-    n_sigma: float = 11.0,
-    slab: int = 256,
-    bb: int = 8,
-    fold: int = 8192,
-    n_windows: int = 4,
-    threshold_falloff: float = 1.2,
-    flag_value: int = 1,
-    pipeline: str = "grid",
-    interpret: bool = False,
-    axis_name: Optional[str] = None,
-    ingest: str = "planar",
-):
-    """The fused single-kernel Pallas flagger, sharded over baselines.
-
-    Each device runs :func:`..models.rfi.pallas_flagger.flag_dump` — the
-    fastest single-chip engine (BASELINE_RESULTS.md round 2) — on its own
-    baseline shard: pure data parallelism, ZERO collectives, so scaling
-    is embarrassing by construction.  The channel axis stays unsharded
-    (the kernel's band-folded layout wants the whole band VMEM-resident
-    per block); for channel-sharded flagging use
-    :func:`make_sharded_flagger`, whose per-stage XLA path does halo
-    exchanges and collective rank searches.
-
-    Returns ``fn(vis_t[, input_flags])`` on baseline-major planar
-    ``(baselines, channels, 2)`` float32 input (the fused engine's native
-    layout), producing ``(baselines, channels)`` uint8 flags with the
-    same baseline sharding.  The local baseline count on every device
-    must divide by ``bb``.
-    """
-    from ..models.rfi import pallas_flagger
-
-    axis = axis_name or BASELINE_AXIS
-    if axis not in mesh.axis_names:
-        raise ValueError(f"mesh must name a {axis!r} axis")
-
-    kw = dict(slab=slab, width=width, n_sigma=n_sigma, n_windows=n_windows,
-              falloff=threshold_falloff, flag_value=flag_value, bb=bb,
-              fold=fold, pipeline=pipeline, interpret=interpret, ingest=ingest)
-
-    def local(vis_t, input_flags=None):
-        return pallas_flagger.flag_dump(vis_t, input_flags, **kw)
-
-    vis_spec = P(axis, None, None)
-    flags_spec = P(axis, None)
-
-    plain = jax.jit(shard_map(
-        local, mesh=mesh, in_specs=(vis_spec,), out_specs=flags_spec,
-        check_rep=False,
-    ))
-    with_flags = jax.jit(shard_map(
-        local, mesh=mesh, in_specs=(vis_spec, flags_spec), out_specs=flags_spec,
-        check_rep=False,
-    ))
-
-    def flagger(vis_t, input_flags=None):
-        n_shards = mesh.shape[axis]
-        if vis_t.shape[0] % (n_shards * bb):
-            raise ValueError(
-                f"baselines ({vis_t.shape[0]}) must divide by shards*bb "
-                f"({n_shards}*{bb})"
-            )
-        if input_flags is not None:
-            return with_flags(vis_t, input_flags)
-        return plain(vis_t)
 
     return flagger

@@ -2,10 +2,9 @@
 
 New capability relative to the reference, which is single-device with
 user-managed contexts (reference: doc/user/init.rst:4-7, accel.py:211-219;
-SURVEY.md §2.5).  The TPU-native scaling model (BASELINE.json north star):
-partition baselines/polarizations — and optionally channels — over a
-``jax.sharding.Mesh``, with XLA collectives over ICI/DCN for the global
-reductions.
+SURVEY.md §2.5).  The scaling model: partition baselines/polarizations —
+and optionally channels — over a ``jax.sharding.Mesh``, with XLA
+collectives (NCCL on GPUs) for the global reductions.
 """
 
 from typing import Optional, Sequence, Tuple

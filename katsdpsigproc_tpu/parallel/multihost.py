@@ -1,10 +1,10 @@
 """Multi-host bring-up helpers.
 
-The reference has no distributed runtime (SURVEY.md §2.5); the TPU-native
-scaling model is: one process per host of a pod slice, globally initialized
-through ``jax.distributed``, with every collective in
-:mod:`katsdpsigproc_tpu.parallel.collectives` riding ICI within a slice and
-DCN across slices.  Failure model matches the reference's scope
+The reference has no distributed runtime (SURVEY.md §2.5); the scaling
+model here is: one process per host, globally initialized through
+``jax.distributed``, with every collective in
+:mod:`katsdpsigproc_tpu.parallel.collectives` riding the interconnect
+within a host and the network across hosts.  Failure model matches the reference's scope
 (SURVEY.md §5 "Failure detection"): multi-host runs fail fast — any
 process error aborts the job; there is no elastic recovery.
 """
@@ -26,9 +26,9 @@ def initialize(
 ) -> None:
     """Initialize the multi-host runtime (idempotent on single host).
 
-    On TPU pods the arguments are discovered from the environment
-    (``jax.distributed.initialize()`` with no arguments); explicit values
-    support CPU/GPU clusters and tests.
+    On a managed cluster the arguments may be discovered from the
+    environment (``jax.distributed.initialize()`` with no arguments);
+    elsewhere pass the coordinator address, process count and process id.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -51,11 +51,11 @@ def pod_mesh(
     baseline_shards: Optional[int] = None,
     channel_shards: int = 1,
 ):
-    """Build the production mesh over every chip of the pod slice.
+    """Build the production mesh over every device of the job.
 
     Baselines×polarizations shard over ``baseline_shards`` (default: all
     devices / channel_shards); lay the channel axis over physically
-    adjacent devices so halo exchanges ride single ICI hops.
+    adjacent devices so halo exchanges stay between neighbours.
     """
     n = jax.device_count()
     if baseline_shards is None:

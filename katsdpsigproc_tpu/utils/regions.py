@@ -1,11 +1,11 @@
-"""Region copies with numpy-index syntax (functional TPU-native form).
+"""Region copies with numpy-index syntax (functional form).
 
 Reference: src/katsdpsigproc/accel.py:588-920 — ``DeviceArray.copy_region``
 / ``get_region`` / ``set_region`` perform rectangular sub-region transfers
 described by ``np.s_`` index expressions, validating that both regions
 select the same shape and dtype.
 
-TPU-native design: ``jax.Array`` is immutable and transfers are managed by
+Design: ``jax.Array`` is immutable and transfers are managed by
 the runtime, so the API is functional — device-to-device and
 host-to-device copies return a NEW destination array (an eager
 ``.at[...].set`` update, i.e. O(destination) per call; wrap the call in a

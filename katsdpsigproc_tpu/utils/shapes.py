@@ -3,12 +3,12 @@
 The reference propagates per-axis padding/alignment requirements through a
 union-find ``Dimension`` system so that composed kernels agree on buffer
 strides (reference: src/katsdpsigproc/accel.py:1115-1294).  Under XLA most of
-that is subsumed by the compiler's layout assignment; what remains useful on
-TPU is an explicit, queryable contract for
+that is subsumed by the compiler's layout assignment; what remains is an
+explicit, queryable contract for
 
-* rounding sizes up to hardware tile multiples (lane = 128, sublane depends
-  on dtype — see the VPU/MXU tiling table in the Pallas guide), and
-* padding arrays so Pallas block specs divide evenly, with a defined pad
+* rounding sizes up to tile multiples (128 along the last axis; the
+  second-to-last axis by itemsize), and
+* padding arrays so blocked kernels divide evenly, with a defined pad
   value (the reference declares padding contents "undefined",
   doc/user/buffers.rst:26-31; we make the pad value explicit per op so that
   reductions and rank statistics can ignore it).
@@ -19,11 +19,11 @@ from typing import Optional, Sequence, Tuple
 import jax.numpy as jnp
 import numpy as np
 
-#: TPU vector lane count — last-axis tile multiple for every dtype.
+#: Last-axis tile multiple for every dtype.
 LANES = 128
 
-#: Sublane (second-to-last axis) tile multiple by itemsize, per the TPU
-#: tiling constraints (float32 → 8, bfloat16 → 16, int8/fp8 → 32).
+#: Second-to-last-axis tile multiple by itemsize (float32 → 8,
+#: bfloat16 → 16, int8/fp8 → 32).
 _SUBLANES_BY_ITEMSIZE = {8: 4, 4: 8, 2: 16, 1: 32}
 
 
@@ -43,7 +43,7 @@ def roundup(x: int, y: int) -> int:
 
 
 def padded_shape(shape: Sequence[int], dtype=jnp.float32) -> Tuple[int, ...]:
-    """Round the trailing two axes of `shape` up to the TPU tile grid."""
+    """Round the trailing two axes of `shape` up to the tile grid."""
     shape = tuple(int(s) for s in shape)
     if len(shape) == 0:
         return shape

@@ -2,27 +2,16 @@
 """FFT-path spectral flagging benchmark (BASELINE.json config 4).
 
 r2c FFT over each baseline's time series → threshold spectral amplitudes
-against an MAD noise estimate → zero flagged bins → c2r inverse.  Exercises
-:mod:`katsdpsigproc_tpu.ops.fft` composed with the rank/threshold
-primitives on one chip (256 baselines × 32k channels by default).
-
-Note: TPU backends without complex-dtype support cannot materialize the
-complex spectrum outside jit; this harness keeps the complex intermediate
-inside a single jit and only real arrays cross the boundary.
+against an MAD noise estimate → zero flagged bins → c2r inverse
+(:func:`katsdpsigproc_tpu.models.rfi.device.spectral_flag`), checked
+against ``np.fft`` and timed (256 baselines × 32k channels by default).
 """
 
 import argparse
 import pathlib
 import sys
-import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-
-from katsdpsigproc_tpu.utils import backend as _backend  # noqa: E402
-
-_backend.apply_platform_env()
-
-import numpy as np  # noqa: E402
 
 
 def main():
@@ -30,48 +19,32 @@ def main():
     parser.add_argument("--baselines", type=int, default=256)
     parser.add_argument("--channels", type=int, default=32768)
     parser.add_argument("--nsigma", type=float, default=5.0)
-    parser.add_argument("--iters", type=int, default=5)
+    parser.add_argument("--iters", type=int, default=10)
     args = parser.parse_args()
+
+    from katsdpsigproc_tpu.utils import backend
+
+    backend.apply_platform_env()
+    backend.enable_compile_cache()
 
     import jax
     import jax.numpy as jnp
+    import numpy as np
 
-    from katsdpsigproc_tpu.models.rfi import MAD_NORMAL
-    from katsdpsigproc_tpu.ops import rank
+    import chip_smoke
+    from katsdpsigproc_tpu.models.rfi import device
+    from katsdpsigproc_tpu.utils import profiling
 
     b, c = args.baselines, args.channels
-    rs = np.random.RandomState(seed=1)
-    data = rs.standard_normal((b, c)).astype(np.float32)
-    # Plant narrowband interference: strong sinusoids in some baselines
-    t = np.arange(c)
-    for i in range(0, b, 7):
-        data[i] += 20.0 * np.sin(2 * np.pi * (0.1 + 0.3 * i / b) * t).astype(np.float32)
-
-    @jax.jit
-    def spectral_flag(x):
-        spectrum = jnp.fft.rfft(x, axis=-1)
-        amp = jnp.abs(spectrum).astype(jnp.float32)
-        noise = MAD_NORMAL * rank.median_non_zero(amp)
-        flags = amp > args.nsigma * noise[:, None]
-        cleaned = jnp.where(flags, 0.0, spectrum)
-        # unnormalised inverse (cuFFT convention) scaled back for output
-        out = jnp.fft.irfft(cleaned, n=c, axis=-1)
-        return flags.astype(jnp.uint8), out.astype(jnp.float32)
-
-    x = jnp.asarray(data)
-    flags, cleaned = jax.block_until_ready(spectral_flag(x))
-    flags = np.asarray(flags)
+    n = chip_smoke.check_spectral_flag(b, c, args.nsigma)
+    print(f"{n} spectral flags agree with np.fft", file=sys.stderr)
+    x = jnp.asarray(chip_smoke.spectral_data(b, c))
+    fn = jax.jit(lambda v: device.spectral_flag(v, args.nsigma))
+    flags = np.asarray(fn(x)[0])
     print(f"flagged spectral bins: {flags.sum()} ({flags.mean() * 100:.3f}%)", file=sys.stderr)
-    assert flags[0].sum() > 0, "planted narrowband RFI not detected"
-    assert flags[1].sum() < flags[0].sum(), "clean baseline over-flagged"
-
-    times = []
-    for _ in range(args.iters):
-        start = time.perf_counter()
-        jax.block_until_ready(spectral_flag(x))
-        times.append(time.perf_counter() - start)
-    dt = float(np.median(times))
-    print(f"{dt * 1e3:.3f} ms/iter, {b * c / dt / 1e9:.2f} Gsamples/s", file=sys.stderr)
+    samples = profiling.time_samples(lambda: fn(x), iters=args.iters)
+    print(f"device ({jax.devices()[0].device_kind}): {chip_smoke.spread(samples)}; "
+          f"{b * c / np.median(samples) / 1e9:.2f} Gsamples/s", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -9,14 +9,6 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from katsdpsigproc_tpu.utils import backend as _backend  # noqa: E402
-
-_backend.apply_platform_env()
-import sys
-import time
-
-import numpy as np
-
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__)
@@ -26,39 +18,31 @@ def main():
     parser.add_argument("--iters", type=int, default=10)
     args = parser.parse_args()
 
-    import jax
-    import jax.numpy as jnp
-
-    from katsdpsigproc_tpu.ops import maskedsum
     from katsdpsigproc_tpu.utils import backend
 
+    backend.apply_platform_env()
+    backend.enable_compile_cache()
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    import chip_smoke
+    from katsdpsigproc_tpu.ops import maskedsum
+    from katsdpsigproc_tpu.utils import profiling
+
     ctx = backend.create_some_context()
+    err = chip_smoke.check_maskedsum(args.rows, args.cols, args.amplitudes)
+    print(f"worst relative error vs a float64 sum: {err:.3g} "
+          f"(bound {chip_smoke.MASKEDSUM_RTOL})", file=sys.stderr)
+
+    op = maskedsum.MaskedSumTemplate(ctx, args.amplitudes).instantiate(
+        None, (args.rows, args.cols))
     rs = np.random.RandomState(seed=1)
-    src = (rs.standard_normal((args.rows, args.cols))
-           + 1j * rs.standard_normal((args.rows, args.cols))).astype(np.complex64)
-    mask = rs.uniform(size=(args.rows,)).astype(np.float32)
-    # Planar layout on device (no complex dtype on TPU backends)
-    from katsdpsigproc_tpu.models.rfi.device import to_planar
-
-    maskedsum.MaskedSumTemplate(ctx, args.amplitudes)  # exercise the template path
-    fn = jax.jit(lambda s, m: maskedsum.maskedsum(s, m, args.amplitudes))
-    v, m = jnp.asarray(to_planar(src)), jnp.asarray(mask)
-    out = np.asarray(jax.block_until_ready(fn(v, m)))
-
-    start = time.perf_counter()
-    if args.amplitudes:
-        expected = (mask[:, None] * np.abs(src)).sum(axis=0)
-    else:
-        expected = to_planar((mask[:, None] * src).sum(axis=0))
-    print(f"numpy: {(time.perf_counter() - start) * 1e3:.1f} ms", file=sys.stderr)
-    np.testing.assert_allclose(out, expected, rtol=1e-4, atol=1e-3)
-
-    # Naive block_until_ready timing measures this environment's ~29 ms
-    # blocking-fetch floor, not the op; use the scan harness.
-    from katsdpsigproc_tpu.utils.profiling import time_scan
-
-    dt = time_scan(fn, (v, m), iters=max(args.iters, 50))
-    print(f"device: {dt * 1e3:.3f} ms/iter (on-chip marginal)", file=sys.stderr)
+    src = jnp.asarray((rs.standard_normal((args.rows, args.cols))
+                       + 1j * rs.standard_normal((args.rows, args.cols))).astype(np.complex64))
+    mask = jnp.asarray(rs.uniform(size=(args.rows,)).astype(np.float32))
+    samples = profiling.time_samples(lambda: op(src=src, mask=mask)["dest"], iters=args.iters)
+    print(f"device ({ctx.device_kind}): {chip_smoke.spread(samples)}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -9,55 +9,40 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from katsdpsigproc_tpu.utils import backend as _backend  # noqa: E402
-
-_backend.apply_platform_env()
-import sys
-import time
-
-import numpy as np
-
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--rows", type=int, default=4000)
     parser.add_argument("--cols", type=int, default=5000)
-    parser.add_argument("--engine", choices=["rank", "sort", "pallas"], default=None,
+    parser.add_argument("--engine", choices=["rank", "sort"], default=None,
                         help="force an engine (default: the tuned-table choice)")
-    parser.add_argument("--iters", type=int, default=5)
+    parser.add_argument("--iters", type=int, default=10)
     args = parser.parse_args()
 
-    import jax
-    import jax.numpy as jnp
-
-    from katsdpsigproc_tpu.ops import percentile
     from katsdpsigproc_tpu.utils import backend
 
+    backend.apply_platform_env()
+    backend.enable_compile_cache()
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    import chip_smoke
+    from katsdpsigproc_tpu.ops import percentile
+    from katsdpsigproc_tpu.utils import profiling
+
     ctx = backend.create_some_context()
-    rs = np.random.RandomState(seed=1)
-    src = np.abs(rs.standard_normal((args.rows, args.cols))).astype(np.float32)
     tuning = {"engine": args.engine} if args.engine else None
     template = percentile.Percentile5Template(ctx, args.cols, True, tuning=tuning)
     print(f"engine: {template.engine}", file=sys.stderr)
-    op = template.instantiate(None, src.shape)
-    v = jnp.asarray(src)
-    out = np.asarray(jax.block_until_ready(op(src=v)["dest"]))
-
-    start = time.perf_counter()
-    expected = np.r_[
-        [np.min(src, axis=1), np.max(src, axis=1)],
-        np.percentile(src, [25, 75, 50], axis=1, method="lower"),
-    ].astype(np.float32)
-    print(f"numpy: {(time.perf_counter() - start) * 1e3:.1f} ms", file=sys.stderr)
-    np.testing.assert_equal(out, expected)
+    chip_smoke.check_percentile(args.rows, args.cols, template.engine)
     print("exact match vs np.percentile(..., 'lower')", file=sys.stderr)
 
-    # Naive block_until_ready timing measures this environment's ~29 ms
-    # blocking-fetch floor, not the op; use the scan harness.
-    from katsdpsigproc_tpu.utils.profiling import time_scan
-
-    dt = time_scan(lambda x: op(src=x)["dest"], (v,), iters=max(args.iters, 20))
-    print(f"device: {dt * 1e3:.3f} ms/iter (on-chip marginal)", file=sys.stderr)
+    op = template.instantiate(None, (args.rows, args.cols))
+    v = jnp.asarray(np.random.RandomState(1).uniform(size=(args.rows, args.cols))
+                    .astype(np.float32))
+    samples = profiling.time_samples(lambda: op(src=v)["dest"], iters=args.iters)
+    print(f"device ({ctx.device_kind}): {chip_smoke.spread(samples)}", file=sys.stderr)
 
 
 if __name__ == "__main__":

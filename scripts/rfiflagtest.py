@@ -4,22 +4,17 @@
 Reproduces the reference's harness (reference: scripts/rfiflagtest.py:47-211):
 1-D flagger over (channels, baselines), or the 2-D twodflag over
 (times, channels, baselines) with ``--time``; prints host (CPU oracle) and
-device (TPU) times and verifies the masks agree.
+device times and verifies the masks agree.
 """
 
 import argparse
 import pathlib
 import sys
+import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from katsdpsigproc_tpu.utils import backend as _backend  # noqa: E402
-
-_backend.apply_platform_env()
-import sys
-import time
-
-import numpy as np
+import numpy as np  # noqa: E402
 
 
 def generate_data(times, channels, baselines):
@@ -39,37 +34,8 @@ def benchmark1d(args, data):
 
     if args.width % 2 != 1:
         raise ValueError("Width must be odd")
-    interpret = jax.devices()[0].platform == "cpu"
-    # Largest bb ≤ 8 that divides the baseline count and satisfies the
-    # sublane tiling (bb*H % 8 == 0): per-baseline in-kernel cost keeps
-    # falling to bb≈8 (scripts/fused_bb_sweep.py; the planar-leading
-    # layout removed round 1's 64-sublane-row AOT ceiling).
-    FOLD = 8192  # round-4 tuned band lane width (capped by _fold_setup)
-    hh = max(1, -(-args.channels // FOLD))
-    bb = next((c for c in (8, 4, 2, 1)
-               if args.baselines % c == 0
-               and ((c * hh) % 8 == 0 or c == args.baselines)), 1)
-    if args.engine in ("pallas", "pallas_dma", "pallas_dma_amp"):
-        from katsdpsigproc_tpu.models.rfi import pallas_flagger
-
-        def fn(vis):
-            vis_t = jnp.swapaxes(vis, 0, 1)
-            if args.engine.startswith("pallas_dma"):
-                ingest = "amp" if args.engine.endswith("amp") else "planar"
-                flags_t = pallas_flagger.flag_transposed_dma(
-                    vis_t, width=args.width, n_sigma=args.sigmas,
-                    bb=bb, fold=FOLD, ingest=ingest, interpret=interpret)
-            else:
-                flags_t = pallas_flagger.flag_dump(
-                    vis_t, width=args.width, n_sigma=args.sigmas,
-                    bb=bb, fold=FOLD, interpret=interpret)
-            return jnp.swapaxes(flags_t, 0, 1)
-    else:
-        pallas_kw = (dict(bb=bb, fold=FOLD, interpret=interpret)
-                     if args.engine == "hybrid" else None)
-        fn = rfi_device.make_flagger_fn(args.width, args.sigmas, threshold="sum",
-                                        engine=args.engine, pallas_kw=pallas_kw)
-    # Planar split-complex layout: TPU backends have no complex dtype
+    fn = rfi_device.make_flagger_fn(args.width, args.sigmas, threshold="sum")
+    # Planar split-complex layout: the image of interleaved complex64
     vis = jnp.asarray(rfi_device.to_planar(data))
     start = time.perf_counter()
     flags = np.asarray(jax.block_until_ready(fn(vis)))
@@ -118,12 +84,13 @@ def main():
     parser.add_argument("--baselines", type=int, default=512)
     parser.add_argument("--width", type=int, default=13)
     parser.add_argument("--sigmas", type=float, default=11.0)
-    parser.add_argument("--engine", choices=["xla", "hybrid", "pallas", "pallas_dma", "pallas_dma_amp"],
-                        default="xla",
-                        help="1-D flagger engine (bench.py times six variants)")
     parser.add_argument("--skip-host", action="store_true")
     args = parser.parse_args()
 
+    from katsdpsigproc_tpu.utils import backend
+
+    backend.apply_platform_env()
+    backend.enable_compile_cache()
     data = generate_data(args.time, args.channels, args.baselines)
     if args.time is None:
         ok = benchmark1d(args, data)

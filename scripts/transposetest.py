@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Transpose benchmark (reference: scripts/transposetest.py:11-25 —
-3072×8320 complex64)."""
+3072×8320 complex64), next to a plain copy of the same bytes."""
 
 import argparse
 import pathlib
@@ -8,51 +8,40 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from katsdpsigproc_tpu.utils import backend as _backend  # noqa: E402
-
-_backend.apply_platform_env()
-import sys
-import time
-
-import numpy as np
-
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--rows", type=int, default=3072)
     parser.add_argument("--cols", type=int, default=8320)
-    parser.add_argument("--engine", choices=["xla", "pallas"], default="xla")
-    parser.add_argument("--iters", type=int, default=10)
+    parser.add_argument("--iters", type=int, default=20)
     args = parser.parse_args()
+
+    from katsdpsigproc_tpu.utils import backend
+
+    backend.apply_platform_env()
+    backend.enable_compile_cache()
 
     import jax
     import jax.numpy as jnp
+    import numpy as np
 
+    import chip_smoke
     from katsdpsigproc_tpu.ops import transpose
-    from katsdpsigproc_tpu.utils import backend
+    from katsdpsigproc_tpu.utils import profiling
 
     ctx = backend.create_some_context()
-    template = transpose.TransposeTemplate(
-        ctx, np.complex64, tuning={"engine": args.engine, "tile_r": 256, "tile_c": 256}
-    )
+    chip_smoke.check_transpose(args.rows, args.cols)
+    op = transpose.TransposeTemplate(ctx, np.complex64).instantiate(None, (args.rows, args.cols))
     rs = np.random.RandomState(seed=1)
-    src = (rs.standard_normal((args.rows, args.cols))
-           + 1j * rs.standard_normal((args.rows, args.cols))).astype(np.complex64)
-    # Planar split-complex on device (no complex dtype on TPU backends)
-    from katsdpsigproc_tpu.models.rfi.device import to_planar
-
-    fn = jax.jit(lambda x: transpose.transpose(x, template))
-    v = jnp.asarray(to_planar(src))
-    out = np.asarray(jax.block_until_ready(fn(v)))
-    np.testing.assert_array_equal(out[:8, :8], to_planar(src.T)[:8, :8])
-    # Naive block_until_ready timing measures this environment's ~29 ms
-    # blocking-fetch floor, not the op; use the scan harness.
-    from katsdpsigproc_tpu.utils.profiling import time_scan
-
-    dt = time_scan(fn, (v,), iters=max(args.iters, 50))
-    nbytes = 2 * src.nbytes
-    print(f"{dt * 1e3:.3f} ms/iter (on-chip marginal), "
-          f"{nbytes / dt / 1e9:.1f} GB/s effective", file=sys.stderr)
+    src = jnp.asarray((rs.standard_normal((args.rows, args.cols))
+                       + 1j * rs.standard_normal((args.rows, args.cols))).astype(np.complex64))
+    nbytes = 2 * src.nbytes  # read + write
+    copy = jax.jit(lambda x: x + jnp.complex64(1))
+    for name, fn in (("transpose", lambda: op(src=src)["dest"]), ("copy", lambda: copy(src))):
+        samples = profiling.time_samples(fn, iters=args.iters)
+        print(f"{name} {args.rows}x{args.cols} c64 ({ctx.device_kind}): "
+              f"{chip_smoke.spread(samples)}; {nbytes / np.median(samples) / 1e9:.1f} GB/s",
+              file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -1,91 +1,83 @@
 #!/usr/bin/env python
-"""Offline tuner: populate the static tuning table for this device.
+"""Offline tuner: measure every autotuned template on this device.
 
-Runs every template's measured autotune search (the reference equivalent is
-the implicit first-use tuning + sqlite cache, tune.py:254-280) for the
+Runs each template's measured autotune search (the reference equivalent is
+the implicit first-use tuning + sqlite cache, tune.py:254-280) at the
 standard benchmark configurations and merges the results into the in-repo
-table ``katsdpsigproc_tpu/utils/tuning_table.json``.
+table ``katsdpsigproc_tpu/utils/tuning_table.json`` (or ``--out``).
+Records are keyed by platform and device kind, and a failed search fails
+the run.
 
-Run on real hardware:  python scripts/tune_all.py
+Run on the card:  python scripts/tune_all.py [--out PATH]
 """
 
+import argparse
 import json
 import os
 import pathlib
 import sys
+import tempfile
 
-import numpy as np
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", os.path.expanduser("~/.cache/jax_comp_cache"))
-
-from katsdpsigproc_tpu.utils import backend as _backend  # noqa: E402
-
-_backend.apply_platform_env()
+TABLE = ROOT / "katsdpsigproc_tpu" / "utils" / "tuning_table.json"
+KEY_FIELDS = ("fn", "version", "platform", "device_kind", "args")
 
 
 def main():
-    from katsdpsigproc_tpu.ops import percentile, transpose
-    from katsdpsigproc_tpu.utils import backend, tune
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--out", default=str(TABLE),
+                        help="table to merge the new records into (default: the shipped one)")
+    args = parser.parse_args()
+
+    from katsdpsigproc_tpu.utils import backend
+
+    backend.apply_platform_env()
+    backend.enable_compile_cache()
+
+    from katsdpsigproc_tpu.models.rfi import device as rfi_device
+    from katsdpsigproc_tpu.ops import percentile
+    from katsdpsigproc_tpu.utils import tune
 
     ctx = backend.create_some_context()
     print(f"tuning for {ctx.device} ({ctx.device_kind})", file=sys.stderr)
 
-    results = []
+    # Force real searches and collect what they would cache.  (Plain
+    # instantiation would hit the shipped table and never re-measure.)
+    new = []
 
-    def run(label, fn):
-        try:
-            out = fn()
-            print(f"{label}: {out}", file=sys.stderr)
-        except Exception as exc:  # noqa: BLE001
-            print(f"{label}: FAILED {exc}", file=sys.stderr)
-
-    # Force real searches and capture what they store in the user DB.
-    # (Plain instantiation would hit the shipped table — including via the
-    # nearest-match fallback on a NEW device kind — and never re-measure.)
-    tmp_db = os.path.join(os.path.dirname(__file__), "..", ".tune_scratch.json")
-    os.environ["KATSDPSIGPROC_TPU_TUNE_DB"] = tmp_db
-    if os.path.exists(tmp_db):
-        os.unlink(tmp_db)
-
-    def forcing_impl(test, fn, *args, **kwargs):
-        cls = args[0] if args else None
-        keys = tune._keys(fn, args, kwargs)
+    def forcing_impl(test, fn, *fn_args, **kwargs):
+        cls = fn_args[0] if fn_args else None
+        keys = tune._keys(fn, fn_args, kwargs)
         keys["version"] = getattr(cls, "autotune_version", 0)
         keys.update(tune._device_columns())
-        result = fn(*args, **kwargs)
-        tune._save_record({**keys, "result": dict(result)})
+        result = fn(*fn_args, **kwargs)
+        new.append({**keys, "result": dict(result)})
         return result
 
     tune.autotuner_impl = forcing_impl
+    choices = {
+        "percentile 5000": percentile.Percentile5Template(ctx, 5000, True).engine,
+        "background median": rfi_device.BackgroundMedianFilterDeviceTemplate(ctx, 13).engine,
+        "madnz transposed": rfi_device.NoiseEstMADTDeviceTemplate(ctx).radix_bits,
+        "madnz straight": rfi_device.NoiseEstMADDeviceTemplate(ctx).radix_bits,
+    }
+    for label, choice in choices.items():
+        print(f"{label}: {choice}", file=sys.stderr)
 
-    from katsdpsigproc_tpu.models.rfi import device as rfi_device, pallas_flagger
-
-    run("transpose f32", lambda: transpose.TransposeTemplate(ctx, np.float32).engine)
-    run("transpose c64", lambda: transpose.TransposeTemplate(ctx, np.complex64).engine)
-    run("percentile 5000", lambda: percentile.Percentile5Template(ctx, 5000, True).engine)
-    run("background median", lambda: rfi_device.BackgroundMedianFilterDeviceTemplate(
-        ctx, 13).engine)
-    run("madnz transposed", lambda: rfi_device.NoiseEstMADTDeviceTemplate(ctx).radix_bits)
-    run("madnz straight", lambda: rfi_device.NoiseEstMADDeviceTemplate(ctx).radix_bits)
-    run("fused flagger", lambda: (
-        lambda t: (t.bb, t.nref, t.pipeline, t.ingest, t.fold))(
-            pallas_flagger.FusedFlaggerTemplate(ctx)))
-
-    # Merge scratch DB into the shipped table
-    table_path = os.path.join(
-        os.path.dirname(__file__), "..", "katsdpsigproc_tpu", "utils", "tuning_table.json"
-    )
-    new = json.load(open(tmp_db)) if os.path.exists(tmp_db) else []
-    old = json.load(open(table_path)) if os.path.exists(table_path) else []
-    key_fields = ("fn", "version", "platform", "device_kind", "args")
-    merged = {tuple(r.get(k) for k in key_fields): r for r in old}
-    merged.update({tuple(r.get(k) for k in key_fields): r for r in new})
-    with open(table_path, "w") as f:
-        json.dump(sorted(merged.values(), key=lambda r: (r["fn"], r["args"])), f, indent=1)
-    print(f"wrote {len(merged)} records to {table_path}", file=sys.stderr)
-    if os.path.exists(tmp_db):
-        os.unlink(tmp_db)
+    out = pathlib.Path(args.out)
+    old = json.loads(TABLE.read_text()) if TABLE.exists() else []
+    merged = {tuple(r.get(k) for k in KEY_FIELDS): r for r in old}
+    merged.update({tuple(r.get(k) for k in KEY_FIELDS): r for r in new})
+    records = sorted(merged.values(), key=lambda r: (r["fn"], r["args"], r["platform"],
+                                                     r["device_kind"]))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.NamedTemporaryFile("w", dir=out.parent, delete=False) as f:
+        json.dump(records, f, indent=1, sort_keys=True)
+        f.write("\n")
+    os.replace(f.name, out)
+    print(f"wrote {len(records)} records to {out}", file=sys.stderr)
 
 
 if __name__ == "__main__":

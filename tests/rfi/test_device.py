@@ -189,7 +189,7 @@ class TestFlaggerDevice:
             np.testing.assert_equal(expected, flags)
 
     def test_planar_layout_matches_complex(self, ctx):
-        """The TPU split-complex layout must give identical flags."""
+        """The split-complex (planar) layout must give identical flags."""
         vis, _, _ = rfi_test_data(shape=(229, 57), seed=9)
         import jax.numpy as jnp
 
@@ -331,3 +331,63 @@ class TestTuningKnobsConsumed:
         np.testing.assert_array_equal(
             noise, device.NoiseEstHostFromDevice(
                 template_cls(ctx, tuning={"radix_bits": 8}))(dev))
+
+
+def _spiky(rs, channels, baselines, frac=1 / 48.0, wide=False):
+    vis = (rs.standard_normal((channels, baselines))
+           + 1j * rs.standard_normal((channels, baselines))).astype(np.complex64)
+    spikes = rs.random_sample(vis.shape) < frac
+    if wide:  # 2..9-channel bursts: exercise the wider SumThreshold windows
+        for c, b in zip(*np.nonzero(spikes)):
+            vis[c:c + 2 + (c + b) % 8, b] += 6.0
+    else:
+        vis += spikes * (rs.random_sample(vis.shape) * 20.0 + 40.0)
+    return vis
+
+
+def _host(width, n_sigma, n_windows=4):
+    return host.FlaggerHost(host.BackgroundMedianFilterHost(width), host.NoiseEstMADHost(),
+                            host.ThresholdSumHost(n_sigma, n_windows=n_windows))
+
+
+class TestMakeFlaggerFnVsHost:
+    """The one-kernel-per-stage flagger (``make_flagger_fn``) against the
+    host oracle over the scenarios the main path must handle: odd and
+    prime channel/baseline counts, a single baseline, every SumThreshold
+    window count, and each input-flag mode with a ragged final slab."""
+
+    @pytest.mark.parametrize("channels,baselines", [
+        (128, 16), (300, 8), (99, 8), (257, 7), (257, 1), (1021, 3)])
+    def test_shapes(self, channels, baselines):
+        vis = _spiky(np.random.RandomState(channels + baselines), channels, baselines)
+        fn = device.make_flagger_fn(13, 11.0, threshold="sum")
+        got = np.asarray(fn(device.to_planar(vis)))
+        expected = _host(13, 11.0)(vis)
+        np.testing.assert_array_equal(got, expected)
+        assert expected.any()
+
+    @pytest.mark.parametrize("n_windows", [1, 2, 3, 4, 5, 6])
+    def test_n_windows_dilation(self, n_windows):
+        """Wide bursts flag through the longer windows and dilate across
+        window boundaries exactly as the oracle does."""
+        vis = _spiky(np.random.RandomState(40 + n_windows), 700, 6, frac=1 / 200.0, wide=True)
+        fn = device.make_flagger_fn(13, 6.0, threshold="sum", n_windows=n_windows)
+        got = np.asarray(fn(device.to_planar(vis)))
+        np.testing.assert_array_equal(got, _host(13, 6.0, n_windows)(vis))
+
+    @pytest.mark.parametrize("block_impl", ["pad", "slice"])
+    @pytest.mark.parametrize("use_flags", list(device.BackgroundFlags))
+    def test_flags_with_slab_tail(self, use_flags, block_impl):
+        rs = np.random.RandomState(7)
+        channels, baselines = 200, 21  # 21 = 2 slabs of 8 + a tail of 5
+        vis = _spiky(rs, channels, baselines)
+        fn = device.make_flagger_fn(13, 11.0, use_flags=use_flags, baseline_block=8,
+                                    block_impl=block_impl)
+        if use_flags == device.BackgroundFlags.NONE:
+            got, expected = fn(device.to_planar(vis)), _host(13, 11.0)(vis)
+        else:
+            shape = (channels,) if use_flags == device.BackgroundFlags.CHANNEL else vis.shape
+            flags = (rs.random_sample(shape) < 0.05).astype(np.uint8)
+            got = fn(device.to_planar(vis), flags)
+            expected = _host(13, 11.0)(vis, flags)
+        np.testing.assert_array_equal(np.asarray(got), expected)

@@ -1,29 +1,7 @@
 """End-to-end autotune searches (reference: per-op @force_autotune tests,
 e.g. test/test_transpose.py:61-63)."""
 
-import numpy as np
 import pytest
-
-
-@pytest.mark.force_autotune
-def test_transpose_autotune_real_search(patch_autotune, tmp_path, monkeypatch):
-    monkeypatch.setenv("KATSDPSIGPROC_TPU_TUNE_DB", str(tmp_path / "t.json"))
-    from katsdpsigproc_tpu.ops import transpose
-    from katsdpsigproc_tpu.utils import backend, tune
-
-    ctx = backend.create_some_context()
-
-    # Restrict the search space so the test is quick; the pallas engine
-    # fails on CPU and must be skipped by the search, not crash it
-    # (reference tune.py:436-447 exception-skip semantics).
-    orig = tune.autotune
-
-    def narrowed(generate, **kwargs):
-        return orig(generate, engine=["pallas", "xla"], tile_r=[256], tile_c=[256])
-
-    monkeypatch.setattr(tune, "autotune", narrowed)
-    template = transpose.TransposeTemplate(ctx, np.float32)
-    assert template.engine in ("xla", "pallas")
 
 
 @pytest.mark.force_autotune

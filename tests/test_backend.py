@@ -61,3 +61,37 @@ def test_create_some_context_interactive(monkeypatch):
         monkeypatch.setattr("builtins.input", lambda prompt="", b=bad: b)
         with pytest.raises(RuntimeError):
             backend.create_some_context(interactive=True, devices=devs)
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    """A set JAX_COMPILATION_CACHE_DIR is used as it stands: nothing else
+    is configured."""
+    calls = []
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    assert backend.enable_compile_cache() == str(tmp_path)
+    assert calls == []
+
+
+def test_compile_cache_fixed_default(monkeypatch):
+    """Unset, the cache lives at a fixed path inside the checkout (the path
+    is part of the cache key), and that path is gitignored."""
+    import pathlib
+
+    calls = []
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    assert backend.enable_compile_cache() == str(repo / ".jax_cache")
+    assert calls == [("jax_compilation_cache_dir", str(repo / ".jax_cache"))]
+    assert ".jax_cache/" in (repo / ".gitignore").read_text().split()
+
+
+def test_platform_rank_prefers_gpu():
+    class Fake:
+        def __init__(self, platform):
+            self.platform = platform
+
+    ranked = sorted([Fake("cpu"), Fake("gpu")], key=backend._rank, reverse=True)
+    assert [d.platform for d in ranked] == ["gpu", "cpu"]
+    assert set(backend._PLATFORM_RANK) == {"gpu", "cuda", "rocm", "cpu"}

@@ -67,11 +67,11 @@ def test_two_process_distributed(tmp_path):
 
 @pytest.mark.slow
 def test_two_process_multichip_bench(tmp_path):
-    """The pod-day scaling harness's --multihost path, launched exactly as
-    it would be per host: a real 2-process jax.distributed run of
-    scripts/multichip_bench.py over a 4-device global mesh (both engines;
-    channel shards make the collectives cross the process boundary).
-    Coordinator-only JSON: process 0 emits records with n_hosts == 2."""
+    """The scaling harness's --multihost path, launched exactly as it
+    would be per host: a real 2-process jax.distributed run of
+    scripts/multichip_bench.py over a 4-device global mesh (channel shards
+    make the collectives cross the process boundary).  Coordinator-only
+    JSON: process 0 emits the record with n_hosts == 2."""
     import json
     import os
     import pathlib
@@ -98,8 +98,7 @@ def test_two_process_multichip_bench(tmp_path):
             [sys.executable, str(script), "--multihost",
              "--coordinator", f"localhost:{port}",
              "--num-processes", "2", "--process-id", str(pid),
-             "--channels", "2048", "--baselines", "32", "--bb", "8",
-             "--slab", "16", "--iters", "2", "--engine", "both",
+             "--channels", "2048", "--baselines", "32", "--iters", "2",
              "--channel-shards", "2"],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
@@ -118,7 +117,7 @@ def test_two_process_multichip_bench(tmp_path):
         assert p.returncode == 0, f"process {pid} failed:\n{out}\n{err}"
     recs = [json.loads(line) for line in outs[0][0].splitlines()
             if line.startswith("{")]
-    assert {r["engine"] for r in recs} == {"fused", "xla"}, recs
+    assert len(recs) == 1, recs
     for r in recs:
         assert r["n_hosts"] == 2 and r["n_devices"] == 4, r
         assert 0.0 < r["value"], r

@@ -52,25 +52,20 @@ class TestTranspose:
         out = op(src=jnp.asarray(src))["dest"]
         np.testing.assert_equal(np.asarray(out), src.T)
 
-    @pytest.mark.parametrize("dtype", [np.float32, np.complex64])
-    @pytest.mark.parametrize("shape", [(16, 384), (130, 260)])
-    def test_pallas_interpret(self, ctx, dtype, shape):
-        """Pallas engine in interpreter mode (compiled path exercised on TPU)."""
-        rs = np.random.RandomState(seed=1)
-        if dtype == np.complex64:
-            src = complex_normal(rs, size=shape).astype(dtype)
-        else:
-            src = rs.uniform(0, 100, shape).astype(dtype)
-        out = transpose._pallas_transpose(jnp.asarray(src), 8, 128, interpret=True)
-        np.testing.assert_equal(np.asarray(out), src.T)
-
-    def test_pallas_interpret_planar(self, ctx):
-        """Explicit planar (R, C, 2) float32 pairs (the no-complex-dtype
-        TPU layout): transposed as (C, R, 2) via the plane-leading grid."""
+    def test_planar(self, ctx):
+        """Planar (R, C, 2) float32 pairs transpose as (C, R, 2)."""
         rs = np.random.RandomState(seed=2)
         src = rs.uniform(0, 100, (48, 260, 2)).astype(np.float32)
-        out = transpose._pallas_transpose(jnp.asarray(src), 8, 128, interpret=True)
+        out = transpose.transpose(jnp.asarray(src))
         np.testing.assert_equal(np.asarray(out), np.swapaxes(src, 0, 1))
+
+    def test_tuning_ignored(self, ctx):
+        """The template has no search dimension: any ``tuning`` is ignored
+        and the op reports only its shape and dtype."""
+        template = transpose.TransposeTemplate(ctx, np.complex64, tuning={"engine": "x"})
+        op = template.instantiate(None, (3, 5))
+        assert op.parameters() == {"dtype": np.dtype(np.complex64), "shape": (3, 5)}
+        assert not hasattr(transpose.TransposeTemplate, "autotune")
 
 
 class TestMaskedSum:
@@ -280,7 +275,7 @@ class TestRank:
 
 
 class TestPercentile5:
-    @pytest.mark.parametrize("engine", ["rank", "sort", "pallas"])
+    @pytest.mark.parametrize("engine", ["rank", "sort"])
     @pytest.mark.parametrize("is_amplitude", [True, False])
     @pytest.mark.parametrize("columns", [7, 241, 500])
     def test_vs_numpy(self, ctx, engine, is_amplitude, columns):

@@ -12,7 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
 from katsdpsigproc_tpu.models.rfi import device as rfi_device, host as rfi_host
@@ -51,7 +51,7 @@ class TestCollectiveRank:
 
         sharded = shard_map(
             fn, mesh=mesh_channel, in_specs=P(None, pmesh.CHANNEL_AXIS), out_specs=P(None),
-            check_rep=False,
+            check_vma=False,
         )
         out = jax.jit(sharded)(jnp.asarray(values))
         expected = rank_ops.find_rank_float(jnp.asarray(values), 100, False)
@@ -70,7 +70,7 @@ class TestCollectiveRank:
 
         sharded = shard_map(
             fn, mesh=mesh_channel, in_specs=P(pmesh.CHANNEL_AXIS, None),
-            out_specs=P(None), check_rep=False,
+            out_specs=P(None), check_vma=False,
         )
         out = jax.jit(sharded)(jnp.asarray(values))
         expected = rank_ops.find_rank_float(jnp.asarray(values), 100, True, axis=0)
@@ -86,7 +86,7 @@ class TestCollectiveRank:
 
         sharded = shard_map(
             fn, mesh=mesh_channel, in_specs=P(None, pmesh.CHANNEL_AXIS), out_specs=P(None),
-            check_rep=False,
+            check_vma=False,
         )
         out = np.asarray(jax.jit(sharded)(jnp.asarray(values)))
         for i in range(values.shape[0]):
@@ -102,7 +102,7 @@ class TestCollectiveRank:
 
         sharded = shard_map(
             fn, mesh=mesh_channel, in_specs=P(None, pmesh.CHANNEL_AXIS), out_specs=P(None, None),
-            check_rep=False,
+            check_vma=False,
         )
         out = np.asarray(jax.jit(sharded)(jnp.asarray(values)))
         expected = np.asarray(percentile_ops.percentile5(jnp.asarray(values)))
@@ -121,7 +121,7 @@ class TestHaloExchange:
             mesh=mesh_channel,
             in_specs=P(pmesh.CHANNEL_AXIS, None),
             out_specs=P(pmesh.CHANNEL_AXIS, None),
-            check_rep=False,
+            check_vma=False,
         )
         out = np.asarray(jax.jit(sharded)(jnp.asarray(x)))  # (8 shards × 12 rows, 1)
         blocks = out.reshape(8, 12, 1)
@@ -262,39 +262,30 @@ class TestShardedTwodflag:
         np.testing.assert_array_equal(expected, out)
 
 
-class TestShardedFusedFlagger:
-    def test_matches_host_oracle(self, mesh_1d):
-        """The fused Pallas kernel sharded over baselines (pure DP, zero
-        collectives) matches the host oracle mask-for-mask."""
-        vis, _, input_flags = rfi_test_data(shape=(256, 32), seed=31)
-        vis_t = jnp.asarray(np.moveaxis(rfi_device.to_planar(vis), 0, 1).copy())
-        fn = pflagger.make_sharded_fused_flagger(
-            mesh_1d, width=13, n_sigma=11.0, bb=4, interpret=True)
-        out = np.asarray(fn(vis_t))
-        host_flagger = rfi_host.FlaggerHost(
-            rfi_host.BackgroundMedianFilterHost(13),
-            rfi_host.NoiseEstMADHost(),
-            rfi_host.ThresholdSumHost(11.0),
-        )
-        np.testing.assert_equal(out.T, host_flagger(vis))
-        # FULL-mode prior flags ride the same sharding
-        f_t = jnp.asarray(input_flags.T.astype(np.uint8))
-        out_f = np.asarray(fn(vis_t, f_t))
-        np.testing.assert_equal(out_f.T, host_flagger(vis, input_flags))
+class TestFourDeviceChannelMesh:
+    """The four-card layout (chip_smoke.py --four-cards): channels sharded
+    over a 4-device mesh, flags identical to the one-device flagger."""
 
-    def test_validates_divisibility(self, mesh_1d):
-        fn = pflagger.make_sharded_fused_flagger(mesh_1d, bb=4, interpret=True)
-        with pytest.raises(ValueError, match="divide"):
-            fn(jnp.zeros((28, 256, 2), jnp.float32))
+    @pytest.mark.parametrize("use_flags", list(rfi_device.BackgroundFlags))
+    def test_matches_one_device(self, use_flags):
+        from jax.sharding import NamedSharding
 
-    def test_dma_pipeline_matches_grid(self, mesh_1d):
-        """The shipped production pipeline (one-shot in-kernel DMA loop)
-        under sharding: same flags as the grid pipeline per shard."""
-        vis, _, _ = rfi_test_data(shape=(128, 32), seed=33)
-        vis_t = jnp.asarray(np.moveaxis(rfi_device.to_planar(vis), 0, 1).copy())
-        grid = pflagger.make_sharded_fused_flagger(
-            mesh_1d, width=13, n_sigma=11.0, bb=4, interpret=True)
-        dma = pflagger.make_sharded_fused_flagger(
-            mesh_1d, width=13, n_sigma=11.0, bb=4, interpret=True,
-            pipeline="dma")
-        np.testing.assert_equal(np.asarray(dma(vis_t)), np.asarray(grid(vis_t)))
+        mesh = pmesh.make_mesh((1, 4), (pmesh.BASELINE_AXIS, pmesh.CHANNEL_AXIS))
+        vis, _, input_flags = rfi_test_data(shape=(512, 24), seed=9)
+        planar = rfi_device.to_planar(vis)
+        vis_sharded = jax.device_put(
+            jnp.asarray(planar),
+            NamedSharding(mesh, P(pmesh.CHANNEL_AXIS, pmesh.BASELINE_AXIS, None)))
+        args, args_1 = (vis_sharded,), (jnp.asarray(planar),)
+        if use_flags == rfi_device.BackgroundFlags.CHANNEL:
+            flags = jnp.asarray(input_flags[:, 0].astype(np.uint8))
+            args, args_1 = args + (flags,), args_1 + (flags,)
+        elif use_flags == rfi_device.BackgroundFlags.FULL:
+            flags = jnp.asarray(input_flags.astype(np.uint8))
+            args, args_1 = args + (flags,), args_1 + (flags,)
+        sharded = pflagger.make_sharded_flagger(mesh, width=13, n_sigma=11.0,
+                                                use_flags=use_flags)
+        out = sharded(*args)
+        assert len({s.device for s in out.addressable_shards}) == 4
+        single = rfi_device.make_flagger_fn(13, 11.0, use_flags=use_flags)
+        np.testing.assert_array_equal(np.asarray(out), np.asarray(single(*args_1)))

@@ -62,13 +62,18 @@ def test_maskedsumabstest_alias():
     assert r.returncode == 0, r.stderr
 
 
-@pytest.mark.parametrize("engine", ["xla", "hybrid", "pallas", "pallas_dma",
-                                    "pallas_dma_amp"])
-def test_rfiflagtest_engines(engine):
-    r = _run("rfiflagtest.py", "--channels", "256", "--baselines", "32",
-             "--engine", engine)
+def test_fftflagtest():
+    r = _run("fftflagtest.py", "--baselines", "14", "--channels", "1024", "--iters", "2")
     assert r.returncode == 0, r.stderr
-    assert "Mask mismatches: 0" in r.stderr
+    assert "agree with np.fft" in r.stderr
+
+
+@pytest.mark.parametrize("script", ["tune_all.py", "flagger_trace.py", "multichip_bench.py"])
+def test_help(script):
+    """The GPU-side scripts parse their options without touching a device."""
+    r = _run(script, "--help")
+    assert r.returncode == 0, r.stderr
+    assert "usage" in r.stdout
 
 
 def test_api_index_fresh():
@@ -78,39 +83,32 @@ def test_api_index_fresh():
 
 @pytest.mark.slow
 def test_multichip_bench():
-    """The multi-chip scaling harness runs end-to-end on the CPU mesh."""
+    """The multi-device scaling harness runs end-to-end on the CPU mesh."""
     import json
 
     r = _run("multichip_bench.py", "--channels", "512", "--baselines", "64",
-             "--iters", "2", "--slab", "32", "--bb", "8", "--engine", "both",
-             "--channel-shards", "2")
+             "--iters", "2", "--channel-shards", "2")
     assert r.returncode == 0, r.stderr
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
-    assert len(lines) == 2, r.stdout + r.stderr
-    for ln in lines:
-        rec = json.loads(ln)
-        assert rec["metric"] == "multichip_scaling_efficiency"
-        assert rec["n_devices"] == 8
-        assert 0 < rec["value"] < 10
+    assert len(lines) == 1, r.stdout + r.stderr
+    rec = json.loads(lines[0])
+    assert rec["metric"] == "multichip_scaling_efficiency"
+    assert rec["n_devices"] == 8
+    assert 0 < rec["value"] < 10
 
 
-@pytest.mark.slow
-def test_roofline_skeleton_interpret():
-    """The floor-evidence harness (skeleton/model reconciliation) must
-    keep running — in interpret mode the ratio is meaningless but the
-    inventory construction, the DMA loop plumbing, and the model lookup
-    are all exercised."""
-    r = _run("roofline_skeleton.py", "--interpret", "--slab", "16",
-             "--bb", "8", "--channels", "512", "--iters", "2", "--reps", "1")
+def test_flagger_trace_cpu(tmp_path):
+    """The stage-trace reduction attributes every kernel of a small CPU
+    trace to a named flagger stage."""
+    import json
+
+    r = _run("flagger_trace.py", "--rows", "8", "--channels", "512", "--dumps", "1",
+             "--out", str(tmp_path))
     assert r.returncode == 0, r.stderr[-2000:]
-    assert "skeleton/model" in r.stdout
-
-
-@pytest.mark.slow
-def test_widefold_ab_interpret():
-    """The wide-fold A/B protocol script parity-checks its legs even in
-    interpret mode (tiny shapes; timings are not meaningful on CPU)."""
-    r = _run("widefold_ab.py", "--rounds", "1", "--iters", "2",
-             "--slab", "16", "--channels", "512")
-    assert r.returncode == 0, r.stderr[-2000:]
-    assert "medians" in r.stdout
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    stages = rec["stages"]
+    assert rec["platform"] == "cpu"
+    for stage in ("background_median_filter", "madnz", "threshold_sum"):
+        assert stages[stage]["device_seconds_per_dump"] > 0, stages
+        assert stages[stage]["bytes_per_vis"] > 0, stages
+    assert (tmp_path / "flagger.hlo.txt").exists()

@@ -89,33 +89,67 @@ class TestAutotunerTable:
         assert _FakeOp.ran
 
     def test_nearest_match_unknown_device_kind_warns(self, tmp_path, monkeypatch, caplog):
-        """A device generation the table has never seen (e.g. a v6e run
-        against the shipped v5e-only table) inherits the nearest record —
-        with a logged warning, so the silent-inheritance failure mode is
-        at least visible (reference semantics: tune.py:151-199)."""
+        """A device model the table has never seen (of a platform it has
+        records for) inherits the nearest record — with a logged warning,
+        so the silent-inheritance failure mode is at least visible
+        (reference semantics: tune.py:151-199)."""
         import logging
 
         db = tmp_path / "t.json"
         monkeypatch.setenv("KATSDPSIGPROC_TPU_TUNE_DB", str(db))
         _FakeOp.autotune(None, 8)  # record under the real device columns
         records = json.loads(db.read_text())
-        assert records[0]["device_kind"] != "TPU v99 hyper"
+        assert records[0]["device_kind"] != "Future Accelerator 9"
 
         from katsdpsigproc_tpu.utils import backend
 
+        platform = records[0]["platform"]
         monkeypatch.setattr(backend, "device_kind_key",
-                            lambda: ("tpu", "TPU v99 hyper"))
+                            lambda: (platform, "Future Accelerator 9"))
         monkeypatch.setenv("KATSDPSIGPROC_TPU_TUNE_MATCH", "nearest")
         _FakeOp.ran = False
         with caplog.at_level(logging.WARNING, logger="katsdpsigproc_tpu.utils.tune"):
             assert _FakeOp.autotune(None, 8) == {"wgs": 16}
         assert not _FakeOp.ran  # inherited, no live search
-        assert any("inherited" in r.message and "TPU v99 hyper" in r.message
+        assert any("inherited" in r.message and "Future Accelerator 9" in r.message
                    for r in caplog.records)
         # exact matching refuses the foreign record and re-tunes instead
         monkeypatch.setenv("KATSDPSIGPROC_TPU_TUNE_MATCH", "exact")
         _FakeOp.autotune(None, 8)
         assert _FakeOp.ran
+
+    @pytest.mark.parametrize("match", ["nearest", "exact"])
+    def test_never_inherits_across_platforms(self, tmp_path, monkeypatch, match):
+        """A record measured on another platform names engines this
+        backend may not compile, so even ``nearest`` refuses it and the
+        search runs instead."""
+        db = tmp_path / "t.json"
+        monkeypatch.setenv("KATSDPSIGPROC_TPU_TUNE_DB", str(db))
+        _FakeOp.autotune(None, 8)
+        records = json.loads(db.read_text())
+        records[0]["platform"] = "other-platform"
+        records[0]["result"] = {"wgs": 999}
+        db.write_text(json.dumps(records))
+        monkeypatch.setenv("KATSDPSIGPROC_TPU_TUNE_MATCH", match)
+        _FakeOp.ran = False
+        assert _FakeOp.autotune(None, 8) == {"wgs": 16}
+        assert _FakeOp.ran
+
+    def test_fetch_drops_only_device_kind(self, tmp_path, monkeypatch):
+        monkeypatch.setenv("KATSDPSIGPROC_TPU_TUNE_DB", str(tmp_path / "none.json"))
+        monkeypatch.setattr(tune, "_TABLE_PATH", str(tmp_path / "table.json"))
+        (tmp_path / "table.json").write_text(json.dumps([
+            {"fn": "f", "version": 1, "args": "{}", "platform": "gpu",
+             "device_kind": "A", "result": {"engine": "a"}},
+            {"fn": "f", "version": 1, "args": "{}", "platform": "cpu",
+             "device_kind": "cpu", "result": {"engine": "c"}},
+        ]))
+        keys = {"fn": "f", "version": 1, "args": "{}"}
+        assert tune._fetch({**keys, "platform": "gpu", "device_kind": "A"}) == {"engine": "a"}
+        assert tune._fetch({**keys, "platform": "gpu", "device_kind": "B"}) == {"engine": "a"}
+        assert tune._fetch({**keys, "platform": "rocm", "device_kind": "A"}) is None
+        assert tune._fetch({**keys, "platform": "gpu", "device_kind": "A",
+                            "version": 2}) is None
 
     def test_stub(self, monkeypatch):
         monkeypatch.setattr(tune, "autotuner_impl", tune.stub_autotuner)
@@ -193,19 +227,24 @@ def test_adapt_value():
     assert tune.adapt_value(42) == 42
 
 
+#: The device the shipped table is measured on (scripts/tune_all.py).
+SHIPPED_DEVICE = {"platform": "gpu", "device_kind": "NVIDIA H100 80GB HBM3"}
+
+
 def test_shipped_table_covers_every_template(tmp_path, monkeypatch):
-    """Instantiating any autotuned template must resolve from the SHIPPED
-    table — a missing record silently falls through to a LIVE measured
-    search (regression: the FusedFlaggerTemplate v5 record was briefly
-    absent and every instantiation re-tuned).  The user cache is pointed
-    at an empty path so a machine-local record cannot mask a gap in the
-    shipped table (that is exactly how a missing MaskedSum record once
-    went unnoticed)."""
-    from katsdpsigproc_tpu.models.rfi import device as rfi_device, pallas_flagger
-    from katsdpsigproc_tpu.ops import percentile, transpose
+    """Instantiating any autotuned template on the shipped table's device
+    must resolve from the SHIPPED table — a missing record silently falls
+    through to a LIVE measured search.  The user cache is pointed at an
+    empty path so a machine-local record cannot mask a gap in the shipped
+    table, and the device columns are those of the card the table was
+    measured on (records never cross platforms, so on this test's CPU
+    they would all miss)."""
+    from katsdpsigproc_tpu.models.rfi import device as rfi_device
+    from katsdpsigproc_tpu.ops import percentile
     from katsdpsigproc_tpu.utils import backend, tune
 
     monkeypatch.setenv("KATSDPSIGPROC_TPU_TUNE_DB", str(tmp_path / "empty.json"))
+    monkeypatch.setattr(tune, "_device_columns", lambda: dict(SHIPPED_DEVICE))
 
     def strict_impl(test, fn, *args, **kwargs):
         cls = args[0] if args else None
@@ -218,30 +257,23 @@ def test_shipped_table_covers_every_template(tmp_path, monkeypatch):
 
     monkeypatch.setattr(tune, "autotuner_impl", strict_impl)
     ctx = backend.create_some_context()
-    transpose.TransposeTemplate(ctx, "float32")
-    transpose.TransposeTemplate(ctx, "complex64")
     percentile.Percentile5Template(ctx, 5000, True)
     rfi_device.BackgroundMedianFilterDeviceTemplate(ctx, 13)
     rfi_device.NoiseEstMADTDeviceTemplate(ctx)
     rfi_device.NoiseEstMADDeviceTemplate(ctx)
-    pallas_flagger.FusedFlaggerTemplate(ctx)
 
 
 def test_shipped_table_versions_match_code():
     """Millisecond-fast JSON check: every template's ``autotune_version``
     has a same-version record in the SHIPPED table.  ``_fetch`` matches on
     'version' and never relaxes it, so a version bump without a table
-    refresh silently degrades to a live measured search (minutes of
-    remote compiles) or, under KATSDPSIGPROC_TPU_TUNE_STUB, to the test
-    config — exactly how the round-4 ``fold`` bump (v6 → v7) briefly
-    shipped a dead FusedFlaggerTemplate record.  The instantiation test
-    above catches this too, but only when the 5-minute suite runs; this
-    one fails in the first second of any run."""
+    refresh silently degrades to a live measured search or, under
+    KATSDPSIGPROC_TPU_TUNE_STUB, to the test config."""
     import json
     import os
 
-    from katsdpsigproc_tpu.models.rfi import device as rfi_device, pallas_flagger
-    from katsdpsigproc_tpu.ops import percentile, transpose
+    from katsdpsigproc_tpu.models.rfi import device as rfi_device
+    from katsdpsigproc_tpu.ops import percentile
     from katsdpsigproc_tpu.utils import tune
 
     table = json.load(open(os.path.join(os.path.dirname(tune.__file__),
@@ -255,21 +287,20 @@ def test_shipped_table_versions_match_code():
     # record at a DIFFERENT args granularity would keep the version check
     # green while production still falls through to a live search.
     canonical = [
-        (transpose.TransposeTemplate, ("float32",)),
-        (transpose.TransposeTemplate, ("complex64",)),
         (percentile.Percentile5Template, (5000, True)),
         (rfi_device.BackgroundMedianFilterDeviceTemplate, (13,)),
         (rfi_device.NoiseEstMADTDeviceTemplate, (32768,)),
         (rfi_device.NoiseEstMADDeviceTemplate, ()),
-        (pallas_flagger.FusedFlaggerTemplate, (13, 4)),
     ]
-    shipped = {(r["fn"], r["version"], r["args"]) for r in table}
+    shipped = {(r["fn"], r["version"], r["args"]) for r in table
+               if r["platform"] == SHIPPED_DEVICE["platform"]
+               and r["device_kind"] == SHIPPED_DEVICE["device_kind"]}
     for cls, args in canonical:
         fn = f"{cls.__name__}.autotune"
         assert cls.autotune_version in by_fn.get(fn, set()), (
             f"{fn}: shipped table has versions {sorted(by_fn.get(fn, set()))} "
             f"but the code requires autotune_version={cls.autotune_version} — "
-            f"re-run scripts/tune_all.py (or scripts/retune_fused.py) on-chip"
+            f"re-run scripts/tune_all.py on the card"
         )
         keys = tune._keys(cls.autotune, (None,) + args, {})
         assert (keys["fn"], cls.autotune_version, keys["args"]) in shipped, (
